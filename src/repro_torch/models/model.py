@@ -1,0 +1,75 @@
+"""Model registry: ModelConfig -> uniform serving API.
+
+Port of ``repro.models.model`` for the decoder family::
+
+    api = build_model(cfg, device="cuda")
+    params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    caches = api.init_paged_caches(batch, num_blocks, block_size, dtype)
+    logits, caches = api.decode_fn(params, caches, batch)
+
+``build_model`` runs on ``cuda`` unless ``device="cpu"`` is passed, and
+raises without a card.  Weights are stored in ``cfg.dtype`` (or
+``dtype``); norm parameters stay fp32.  ``loss_fn`` and ``prefill_fn``
+arrive with the training / flash-attention slice, encoder-decoder models
+with the Whisper slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.device import resolve_device, torch_dtype
+
+from . import transformer
+
+
+@dataclass
+class ModelAPI:
+    cfg: Any
+    device: torch.device
+    dtype: torch.dtype
+    init: Callable                 # (torch.Generator) -> params
+    loss_fn: Callable              # (params, batch) -> (loss, metrics)
+    prefill_fn: Callable           # (params, batch) -> (B, V) logits
+    decode_fn: Callable            # (params, caches, batch) -> (logits, caches)
+    # (batch, num_blocks, block_size, dtype) -> physically paged caches
+    init_paged_caches: Callable
+
+
+def build_model(cfg, device=None, dtype=None) -> ModelAPI:
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            "encoder-decoder models arrive with the Whisper slice")
+    device = resolve_device(device)
+    dtype = torch_dtype(dtype or cfg.dtype)
+
+    def init(gen):
+        if gen is not None and gen.device.type != device.type:
+            raise ValueError(f"generator on {gen.device}, model on "
+                             f"{device}")
+        return transformer.init_lm(gen, cfg, device, dtype)
+
+    def loss_fn(params, batch):
+        raise NotImplementedError(
+            "loss_fn arrives with the training slice")
+
+    def prefill_fn(params, batch):
+        raise NotImplementedError(
+            "prefill_fn arrives with the flash-attention slice")
+
+    def decode_fn(params, caches, batch):
+        return transformer.decode_lm(
+            params, cfg, caches, batch["tokens"], batch["cache_len"],
+            active=batch.get("active"),
+            block_tables=batch.get("block_tables"))
+
+    def init_paged_caches(batch, num_blocks, block_size, cache_dtype=None):
+        return transformer.init_paged_caches(
+            cfg, batch, num_blocks, block_size,
+            torch_dtype(cache_dtype or dtype), device)
+
+    return ModelAPI(cfg, device, dtype, init, loss_fn, prefill_fn,
+                    decode_fn, init_paged_caches)

@@ -1,0 +1,163 @@
+"""The port stands alone: no JAX, no ``repro``, no silent CPU fallback.
+
+* An AST scan of ``src/repro_torch/`` finds no import of ``jax`` or of
+  the JAX package ``repro``.
+* A subprocess imports every module of ``repro_torch`` with ``jax`` and
+  ``repro`` blocked in ``sys.modules``.
+* ``build_model`` and ``ContinuousEngine`` run on ``cuda`` by default
+  and raise without a card unless ``device="cpu"`` is passed.
+* The kernel wrappers take their plain versions for CPU tensors only: on
+  any other device they launch the kernel or raise.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+PKG = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_jax_or_repro_import_in_the_port():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) > 20
+    bad = [(str(f.relative_to(PKG)), m) for f in files
+           for m in _imported_modules(f)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "for name in %r: sys.modules[name] = None\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "assert not any(k.split('.')[0] in %r and sys.modules[k]\n"
+        "               for k in list(sys.modules))\n"
+        "print(len(mods))\n" % (FORBIDDEN, FORBIDDEN))
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert int(proc.stdout.split()[-1]) >= 20
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_a_card(no_card):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import main, serve
+    from repro_torch.models import build_model
+    from repro_torch.runtime.config import EngineConfig
+    from repro_torch.runtime.engine import ContinuousEngine
+
+    cfg = get_config("stablelm-3b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(cfg, device="cuda")
+    api = build_model(cfg, device="cpu")
+    assert api.device == torch.device("cpu")
+    params = api.init(torch.Generator().manual_seed(0))
+    config = EngineConfig(hbm_budget=1 << 28, max_context=16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ContinuousEngine(api, params, config=config)
+    ContinuousEngine(api, params, config=config, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve("stablelm-3b", n_requests=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--requests", "1"])
+
+
+def test_serve_cli_on_cpu(capsys):
+    from repro_torch.launch.serve import main
+
+    main(["--device", "cpu", "--requests", "3", "--max-new", "4",
+          "--max-batch", "2", "--hbm-budget", "256M"])
+    out = capsys.readouterr().out
+    assert "3/3 requests" in out and "on cpu" in out
+    with pytest.raises(SystemExit):
+        main(["--device", "cpu", "--engine", "round"])
+
+
+def _paged_args(device):
+    rng = np.random.default_rng(0)
+    B, H, K, D, bs, bpr = 2, 4, 2, 16, 4, 3
+    pool = torch.tensor(rng.standard_normal((B * bpr + 1, bs, K, D)),
+                        dtype=torch.float32, device=device)
+    q = torch.tensor(rng.standard_normal((B, H, D)), dtype=torch.float32,
+                     device=device)
+    tables = torch.arange(B * bpr, dtype=torch.int32,
+                          device=device).reshape(B, bpr)
+    lens = torch.tensor([0, bpr * bs - 1], dtype=torch.int32, device=device)
+    new = torch.ones(B, 1, K, D, device=device)
+    return q, pool, tables, lens, new
+
+
+def test_wrappers_take_the_plain_path_only_on_cpu(monkeypatch):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_attention import (
+        launches, paged_append, paged_decode_attention,
+        paged_decode_attention_plain)
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+
+    def no_build(name):
+        raise AssertionError(f"CPU tensors must not build {name}")
+
+    monkeypatch.setattr(pa, "load", no_build)
+    monkeypatch.setattr(_build, "load", no_build)
+    before = dict(launches)
+    q, pool, tables, lens, new = _paged_args("cpu")
+    got = paged_decode_attention(q, pool, pool, tables, lens)
+    torch.testing.assert_close(
+        got, paged_decode_attention_plain(q, pool, pool, tables, lens))
+    paged_append(pool, pool.clone(), new, new, tables, lens,
+                 torch.ones(2, dtype=torch.int32))
+    assert launches == before
+    # any other device: the kernel or an error, never the plain version
+    q, pool, tables, lens, new = _paged_args("meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        paged_decode_attention(q, pool, pool, tables, lens)
+    with pytest.raises(ValueError, match="no kernel"):
+        paged_append(pool, pool, new, new, tables, lens, lens)
+
+
+@pytest.mark.cuda
+def test_wrappers_launch_their_kernel_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.kernels.paged_attention import (launches, paged_append,
+                                                     paged_decode_attention)
+
+    q, pool, tables, lens, new = _paged_args("cuda")
+    before = dict(launches)
+    paged_append(pool, pool.clone(), new, new, tables, lens, lens)
+    paged_decode_attention(q, pool, pool, tables, lens)
+    torch.cuda.synchronize()
+    assert launches["paged_append"] == before["paged_append"] + 1
+    assert launches["paged_decode_attention"] == \
+        before["paged_decode_attention"] + 1

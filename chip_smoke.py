@@ -5,14 +5,18 @@
 Phases (each raises on failure; the script exits 0 only if all pass):
 
 1. card: the GPU's name and power limit, from ``nvidia-smi``;
-2. build: both CUDA kernels from ``src/repro_torch/csrc/`` (one ``nvcc``
-   each, in parallel);
-3. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (B=8, H=K=32, D=80, block 16, ragged lengths
-   with 0 and a full row, unallocated table entries on the scratch row),
-   plus a GQA case (K=8) and a windowed case, in bf16 and fp32
-   (tolerance fp32 2e-5, bf16 2e-2; pools after the append bit-exact);
-   median times by CUDA events beside the bytes bound;
+2. build: the three CUDA kernels from ``src/repro_torch/csrc/`` (one
+   ``nvcc`` each, in parallel);
+3. kernels: the paged kernels against their plain PyTorch versions on
+   the card at the serving path's shapes (B=8, H=K=32, D=80, block 16,
+   ragged lengths with 0 and a full row, unallocated table entries on the
+   scratch row), plus a GQA case (K=8) and a windowed case, in bf16 and
+   fp32 (tolerance fp32 2e-5, bf16 2e-2; pools after the append
+   bit-exact); ``branch_matmul`` against its plain version at the
+   planner path's two sites (G=6, M=512, K=2560, N=240 and G=6, M=512,
+   K=80, N=2560) in fp32 and bf16, and a ragged ``parallel_branches``
+   case (same tolerances; two launches bit-identical); median times by
+   CUDA events beside the bound and, for ``branch_matmul``, ``torch.bmm``;
 4. serve: ``stablelm-3b`` at full width (32 layers, d_model 2560, bf16,
    random weights from ``torch.Generator`` seed 0) through
    ``ContinuousEngine`` with the paged pool, prefix sharing and megastep
@@ -27,7 +31,23 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    then where one full-width decode step spends its time (host clock,
    ``torch.profiler``);
 7. CLI: ``repro_torch.launch.serve.serve("stablelm-3b",
-   engine_mode="continuous")`` on the card.
+   engine_mode="continuous")`` on the card;
+8. planner A, the grouped kernel's path: ``torch_graph_zoo.multihead_graph
+   (dim=2560, heads=32, seq=512)`` (one stablelm-3b attention layer at
+   its widths, fp32) planned with the card's free memory as the §3.3
+   budget, then run in every ``PlanExecutor`` mode.  Launch counts are
+   zeroed just before and read just after: every fused run must launch
+   ``branch_matmul`` once per GEMM site (2).  Kernel-off modes and the
+   ``ArenaExecutor`` must be bit-identical to ``reference``.  The fused
+   modes must match the same schedule run with the plain GEMM (cuBLAS
+   ``bmm``) to rtol = atol = 2e-5, and ``reference`` to a normwise 1e-4:
+   this graph's attention logits (std ~225) turn fp32 rounding into
+   elementwise differences above 2e-5 between any two summation orders
+   (normwise ~1e-5; an ordering or mapping fault would give ~1);
+9. planner B, the model DAG: ``export_decoder_graph`` of stablelm-3b at
+   full width and depth (32 layers, fp32 weights from
+   ``torch.Generator`` seed 0), batch 1, seq 256, through the planner and
+   every mode; fused and whole-plan logits bit-identical to ``reference``.
 
 The last two lines are the ``kernels`` JSON object and the result
 object ``{"ok": true, "device": {...}}``.  Without a card, or without
@@ -36,6 +56,7 @@ the repository beside it, the script fails before printing a result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -55,6 +76,19 @@ MAX_CONTEXT = PROMPT_MAX + MAX_NEW
 BPR = -(-MAX_CONTEXT // BS)        # blocks per row at that context
 SPIN_CYCLES = 2_000_000            # ~1 ms: covers one wrapper's host time
 
+BM_SITES = {"qkv": (6, 512, 2560, 240), "out": (6, 512, 80, 2560)}
+PLANNER_GRAPH = dict(dim=2560, heads=32, seq=512)
+DAG_BATCH, DAG_SEQ = 1, 256
+RUNS_A, RUNS_B = 15, 5             # timed runs per planner mode
+MODES = {                          # PlanExecutor keyword arguments
+    "reference": dict(mode="reference"),
+    "sequential": dict(mode="sequential"),
+    "interpreted": dict(fused=False),
+    "fused": dict(),
+    "whole_plan": dict(whole_plan=True),
+    "fused, kernel off": dict(use_branch_kernel=False),
+}
+
 KERNELS = {
     "paged_decode_attention": dict(
         source="src/repro_torch/csrc/paged_decode_attention.cu",
@@ -62,6 +96,9 @@ KERNELS = {
     "paged_append": dict(
         source="src/repro_torch/csrc/paged_append.cu",
         replaces="src/repro/kernels/paged_attention/paged_attention.py:159"),
+    "branch_matmul": dict(
+        source="src/repro_torch/csrc/branch_matmul.cu",
+        replaces="src/repro/kernels/branch_matmul/branch_matmul.py:45"),
 }
 
 
@@ -369,14 +406,278 @@ def reference_phase(device):
         f"steps: max abs err {worst:.3e} (tol 2e-5)")
 
 
+# --------------------------------------------------------------------------
+# phase 3b: branch_matmul against its plain version and torch.bmm
+# --------------------------------------------------------------------------
+
+def gemm_bound(G, M, K, N, dtype):
+    """Least time for (G, M, K) x (G, K, N): the larger of its operations
+    over the card's peak for the type and its bytes (each operand read
+    once, the output written once) over the memory rate."""
+    item = torch.finfo(dtype).bits // 8
+    t_ops = 2 * G * M * K * N / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = (G * M * K + G * K * N + G * M * N) * item / HBM_BYTES_PER_S \
+        * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def branch_phase(bm, device):
+    """Both planner sites in fp32 and bf16, and a ragged group; returns
+    (max abs err, timing summed over the two fp32 sites of one fused
+    run)."""
+    rng = np.random.default_rng(1)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    worst = 0.0
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound=0.0)
+    by = set()
+    for site, (G, M, K, N) in BM_SITES.items():
+        # outputs of std 0.5 stay below 4, where a bf16 ulp (1.6e-2) is
+        # under the tolerance: two fp32 sums may round to adjacent values
+        x0 = rng.standard_normal((G, M, K), dtype=np.float32)
+        w0 = rng.standard_normal((G, K, N), dtype=np.float32) \
+            / np.float32(2 * np.sqrt(K))
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.tensor(x0, device=device).to(dtype)
+            w = torch.tensor(w0, device=device).to(dtype)
+            got = bm.branch_matmul(x, w)
+            again = bm.branch_matmul(x, w)
+            want = bm.branch_matmul_plain(x, w)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            same = torch.equal(got, again)
+            worst = max(worst, e)
+            ms = median_ms(lambda: bm.branch_matmul(x, w), flush)
+            plain_ms = median_ms(lambda: bm.branch_matmul_plain(x, w), flush)
+            lib_ms = median_ms(lambda: torch.bmm(x, w), flush)
+            bound, bound_by = gemm_bound(G, M, K, N, dtype)
+            log(f"branch_matmul {site} {str(dtype)[6:]} G={G} M={M} K={K} "
+                f"N={N}: max abs err {e:.3e} (tol {TOL[dtype]}), reruns "
+                f"{'bit-identical' if same else 'DIFFER'}; kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm "
+                f"{lib_ms:.4f} ms, bound {bound:.5f} ms ({bound_by})")
+            if not (e <= TOL[dtype] and same):
+                raise AssertionError("branch_matmul disagrees with its plain "
+                                     "version or with itself")
+            if dtype == torch.float32:
+                total["ms"] += ms
+                total["plain_ms"] += plain_ms
+                total["library_ms"] += lib_ms
+                total["bound"] += bound
+                by.add(bound_by)
+    from repro_torch.kernels.branch_matmul import parallel_branches
+    xs = [torch.tensor(rng.standard_normal((m, 80), dtype=np.float32),
+                       device=device) for m in (512, 384, 450, 129)]
+    ws = [torch.tensor(rng.standard_normal((80, 2560), dtype=np.float32)
+                       / np.float32(np.sqrt(80)), device=device) for _ in xs]
+    for o, x, w in zip(parallel_branches(xs, ws), xs, ws):
+        e = (o - bm.branch_matmul_plain(x[None], w[None])[0]).abs().max()
+        worst = max(worst, e.item())
+        if not e.item() <= TOL[torch.float32]:
+            raise AssertionError("parallel_branches disagrees on a ragged "
+                                 "group")
+    log(f"branch_matmul ragged parallel_branches M=(512, 384, 450, 129) "
+        f"K=80 N=2560 fp32: max abs err {worst:.3e}")
+    total["bound"] = (total["bound"], "/".join(sorted(by)))
+    log(f"branch_matmul per fused run (qkv + out sites, fp32): kernel "
+        f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
+        f"torch.bmm {total['library_ms']:.4f} ms, bound "
+        f"{total['bound'][0]:.5f} ms ({total['bound'][1]})")
+    return worst, total
+
+
+# --------------------------------------------------------------------------
+# phases 8-9: the §3 planner and PlanExecutor
+# --------------------------------------------------------------------------
+
+def run_modes(plan, env, device, modes, runs, bm=None):
+    """Every mode runs once (its output, and the peak device memory it
+    allocates above what was resident), then ``runs`` timed runs with the
+    modes taking turns, so drift on the shared host spreads over all of
+    them; each run ends in its own sync.  Returns {mode: (output,
+    dispatches, syncs, (median, min, max) ms, peak GiB)}.  With ``bm``,
+    every run must launch ``branch_matmul`` once per GEMM site of its
+    compiled schedule (0 for the other modes)."""
+    from repro_torch.core import PlanExecutor
+
+    exs = {mode: PlanExecutor(plan, device=device, **kw)
+           for mode, kw in modes.items()}
+
+    def run(mode):
+        ex = exs[mode]
+        sites = (ex.compiled.stats.gemm_sites if ex.compiled is not None
+                 and ex.compiled.use_branch_kernel else 0)
+        before = bm.launches["branch_matmul"] if bm else 0
+        t0 = time.perf_counter()
+        res = ex(env)
+        ms = (time.perf_counter() - t0) * 1e3
+        if bm and bm.launches["branch_matmul"] - before != sites:
+            raise AssertionError(f"{mode}: {bm.launches} launches, "
+                                 f"expected {sites} per run")
+        if modes[mode].get("mode") != "sequential" \
+                and ex.last_sync_count != 1:
+            raise AssertionError(f"{mode}: {ex.last_sync_count} syncs")
+        return res.outputs[plan.graph.outputs[0]], ms
+
+    outs, peaks = {}, {}
+    for mode in exs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        outs[mode] = run(mode)[0]
+        peaks[mode] = (torch.cuda.max_memory_allocated() - resident) / 2**30
+    walls = {mode: [] for mode in exs}
+    for _ in range(runs):
+        for mode in exs:
+            walls[mode].append(run(mode)[1])
+    return {mode: (outs[mode], ex.last_dispatch_count, ex.last_sync_count,
+                   (float(np.median(walls[mode])), min(walls[mode]),
+                    max(walls[mode])), peaks[mode])
+            for mode, ex in exs.items()}
+
+
+def fused_with_plain_gemm(plan, env, device, bm):
+    """The fused schedule's output with ``branch_matmul_plain`` (cuBLAS
+    ``bmm``) in place of the kernel: the same GEMMs in another summation
+    order, so it isolates the kernel from this graph's conditioning."""
+    import importlib
+
+    from repro_torch.core import PlanExecutor
+
+    ops = importlib.import_module("repro_torch.kernels.branch_matmul.ops")
+    kernel = ops.branch_matmul
+    ops.branch_matmul = bm.branch_matmul_plain
+    try:
+        res = PlanExecutor(plan, device=device)(env)
+    finally:
+        ops.branch_matmul = kernel
+    return res.outputs[plan.graph.outputs[0]]
+
+
+def planner_kernel_path(bm, device):
+    """Phase 8: returns the ``branch_matmul`` launches of the main path."""
+    import torch_graph_zoo as tz
+    from repro_torch.core import (ArenaExecutor, ParallaxConfig,
+                                  compile_plan, compile_schedule)
+    from repro_torch.core.executor import to_device
+
+    g, make = tz.multihead_graph(**PLANNER_GRAPH)
+    budget = torch.cuda.mem_get_info(device)[0]
+    t0 = time.perf_counter()
+    plan = compile_plan(g, ParallaxConfig(budget=budget))
+    plan_s = time.perf_counter() - t0
+    stats = compile_schedule(plan, donate=True).stats
+    log(f"planner A: multihead_graph{tuple(PLANNER_GRAPH.values())} fp32, "
+        f"{g.num_nodes()} nodes, budget {budget / 2**30:.2f} GiB free on "
+        f"the card: planned in {plan_s:.3f} s, {stats}")
+    if stats.batched_groups < 1 or stats.gemm_sites != 2:
+        raise AssertionError("the planner path does not reach "
+                             "branch_matmul at full width")
+    env = to_device(make(np.random.default_rng(0)), device)
+    torch.cuda.synchronize()
+    bm.reset_launches()
+    res = run_modes(plan, env, device, MODES, RUNS_A, bm)
+    launches = bm.launches["branch_matmul"]
+    ref = res["reference"][0]
+    exact = g.execute({t: v.double() for t, v in env.items()})[g.outputs[0]]
+    plain = fused_with_plain_gemm(plan, env, device, bm)
+    for mode, (o, disp, syncs, ms, peak) in res.items():
+        rel = ((o - ref).norm() / ref.norm()).item()
+        rel64 = ((o.double() - exact).norm() / exact.norm()).item()
+        log(f"planner A: {mode:18s} {disp:4d} dispatches, {syncs} syncs, "
+            f"{ms[0]:7.3f} ms/run ({ms[1]:.3f}-{ms[2]:.3f}), peak "
+            f"+{peak:.3f} GiB; vs reference: max abs "
+            f"{(o - ref).abs().max().item():.3e}, normwise {rel:.3e}; vs "
+            f"float64: max abs {(o.double() - exact).abs().max().item():.3e}"
+            f", normwise {rel64:.3e}")
+        if mode in ("fused", "whole_plan"):      # through branch_matmul
+            if not (torch.allclose(o, plain, rtol=2e-5, atol=2e-5)
+                    and rel <= 1e-4):
+                raise AssertionError(f"{mode}: kernel path off its plain "
+                                     f"version or {rel:.3e} from reference")
+        elif not torch.equal(o, ref):
+            raise AssertionError(f"{mode} differs from reference")
+    log(f"planner A: fused with the plain GEMM vs with the kernel: max abs "
+        f"{(plain - res['fused'][0]).abs().max().item():.3e} (rtol=atol="
+        f"2e-5 holds); output max |y| {ref.abs().max().item():.1f}")
+    arena = ArenaExecutor(plan, device=device)(env)[g.outputs[0]]
+    if not torch.equal(arena, ref):
+        raise AssertionError("ArenaExecutor differs from reference")
+    log(f"planner A: ArenaExecutor bit-identical to reference; "
+        f"branch_matmul launches on this path: {launches} "
+        f"({stats.gemm_sites} per fused or whole-plan run)")
+    return launches
+
+
+def planner_model_dag(device):
+    """Phase 9: stablelm-3b at full width and depth through the planner."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ArenaExecutor, ParallaxConfig,
+                                  clear_compile_cache, compile_plan,
+                                  compile_schedule)
+    from repro_torch.core.executor import to_device
+    from repro_torch.models import build_model
+    from repro_torch.models.dag_export import export_decoder_graph
+
+    cfg = get_config("stablelm-3b")
+    t0 = time.perf_counter()
+    api = build_model(cfg, device=device, dtype="float32")
+    lm = api.init(torch.Generator(device=device).manual_seed(0))
+    g, make = export_decoder_graph(cfg, lm, DAG_BATCH, DAG_SEQ)
+    export_s = time.perf_counter() - t0
+    budget = torch.cuda.mem_get_info(device)[0]
+    t0 = time.perf_counter()
+    plan = compile_plan(g, ParallaxConfig(budget=budget))
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats = compile_schedule(plan, donate=True).stats
+    lower_s = time.perf_counter() - t0
+    log(f"planner B: {cfg.name} full width and depth ({cfg.num_layers} "
+        f"layers, d_model {cfg.d_model}, fp32), batch {DAG_BATCH}, seq "
+        f"{DAG_SEQ}: {g.num_nodes()} nodes after build+export in "
+        f"{export_s:.1f} s; planned in {plan_s:.2f} s (budget "
+        f"{budget / 2**30:.2f} GiB) into {len(plan.branches)} branches, "
+        f"{len(plan.layers)} layers, {len(plan.schedule.layers)} scheduled "
+        f"layers, max width {plan.schedule.max_width()}; lowered in "
+        f"{lower_s:.2f} s, {stats}")
+    env = to_device(make(np.random.default_rng(0)), device)
+    modes = {k: v for k, v in MODES.items() if k != "fused, kernel off"}
+    res = run_modes(plan, env, device, modes, RUNS_B)
+    ref = res["reference"][0]
+    if ref.shape != (DAG_BATCH, DAG_SEQ, cfg.vocab_size) \
+            or not torch.isfinite(ref).all():
+        raise AssertionError("malformed logits")
+    for mode, (o, disp, syncs, ms, peak) in res.items():
+        same = torch.equal(o, ref)
+        log(f"planner B: {mode:12s} {disp:5d} dispatches, {syncs:3d} syncs, "
+            f"{ms[0]:9.3f} ms/run ({ms[1]:.3f}-{ms[2]:.3f}), peak "
+            f"+{peak:.2f} GiB; logits "
+            f"{'bit-identical to' if same else 'DIFFER from'} reference")
+        if not same:
+            raise AssertionError(f"{mode} differs from reference")
+    arena = ArenaExecutor(plan, device=device)(env)[g.outputs[0]]
+    log(f"planner B: ArenaExecutor logits "
+        f"{'bit-identical to' if torch.equal(arena, ref) else 'DIFFER from'}"
+        f" reference; resident: fp32 weights "
+        f"{sum(p.numel() for p in lm.parameters()) * 4 / 2**30:.2f} GiB, "
+        f"all {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    if not torch.equal(arena, ref):
+        raise AssertionError("ArenaExecutor differs from reference")
+    del api, lm, g, make, plan, env, res, ref, arena
+    clear_compile_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(HERE, "src"))
+    sys.path.insert(0, os.path.join(HERE, "tests"))
     from repro_torch.configs import get_config
     from repro_torch.device import deterministic
     from repro_torch.kernels import _build
+    from repro_torch.kernels import branch_matmul as bm
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import build_model
 
@@ -391,6 +692,7 @@ def main() -> int:
 
     log(f"build: {_build.build():.2f} s for {', '.join(KERNELS)}")
     err, timing = kernel_phase(pa, device)
+    err["branch_matmul"], timing["branch_matmul"] = branch_phase(bm, device)
 
     # phase 4: the main path at full width
     cfg = get_config("stablelm-3b")
@@ -441,7 +743,7 @@ def main() -> int:
         if not same:
             raise AssertionError("greedy streams differ")
     step_profile(api, params, device)
-    del api, params, eng
+    del api, params, eng, e2
     torch.cuda.empty_cache()
 
     reference_phase(device)
@@ -453,6 +755,11 @@ def main() -> int:
     log(f"cli: serve('stablelm-3b', engine_mode='continuous') completed "
         f"{len(done)} requests on {torch.cuda.get_device_name(0)}")
 
+    gc.collect()                   # the CLI's model, before the planner
+    torch.cuda.empty_cache()
+    main_launches["branch_matmul"] = planner_kernel_path(bm, device)
+    planner_model_dag(device)
+
     rows = []
     for name, meta in KERNELS.items():
         t = timing[name]
@@ -461,7 +768,8 @@ def main() -> int:
                      "launches": main_launches[name],
                      "max_abs_err": err[name], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-                     "bound_by": t["bound"][1], "library_ms": None})
+                     "bound_by": t["bound"][1],
+                     "library_ms": t.get("library_ms")})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

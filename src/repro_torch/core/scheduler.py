@@ -8,8 +8,8 @@ subset of branches whose combined estimated peak memory fits the budget:
 
 Unselected branches run sequentially — OOM-free while maximizing safe
 concurrency.  A ``max_parallel`` cap models the paper's thread ceiling
-(Fig. 3; 6 threads in their experiments — our TPU adaptation uses it as
-the branch-batch width of the fused kernels).
+(Fig. 3; 6 threads in their experiments — the grouped-GEMM adaptation
+uses it as the branch-batch width of the fused kernels).
 """
 
 from __future__ import annotations

@@ -34,6 +34,7 @@ SIGNATURES = {
                                _I, _I, _F, _I, _P),
     "paged_append": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _I, _P),
+    "branch_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _loaded: "dict[str, ctypes.CDLL]" = {}

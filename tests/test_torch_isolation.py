@@ -1,11 +1,12 @@
 """The port stands alone: no JAX, no ``repro``, no silent CPU fallback.
 
-* An AST scan of ``src/repro_torch/`` finds no import of ``jax`` or of
-  the JAX package ``repro``.
-* A subprocess imports every module of ``repro_torch`` with ``jax`` and
-  ``repro`` blocked in ``sys.modules``.
-* ``build_model`` and ``ContinuousEngine`` run on ``cuda`` by default
-  and raise without a card unless ``device="cpu"`` is passed.
+* An AST scan of ``src/repro_torch/`` and ``tests/torch_graph_zoo.py``
+  finds no import of ``jax`` or of the JAX package ``repro``.
+* A subprocess imports every module of ``repro_torch``, and the torch
+  graph zoo, with ``jax`` and ``repro`` blocked in ``sys.modules``.
+* ``build_model``, ``ContinuousEngine``, ``PlanExecutor`` and
+  ``ArenaExecutor`` run on ``cuda`` by default and raise without a card
+  unless ``device="cpu"`` is passed.
 * The kernel wrappers take their plain versions for CPU tensors only: on
   any other device they launch the kernel or raise.
 """
@@ -23,6 +24,7 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+ZOO = pathlib.Path(__file__).resolve().parent / "torch_graph_zoo.py"
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -37,9 +39,9 @@ def _imported_modules(path: pathlib.Path):
 
 
 def test_no_jax_or_repro_import_in_the_port():
-    files = sorted(PKG.rglob("*.py"))
-    assert len(files) > 20
-    bad = [(str(f.relative_to(PKG)), m) for f in files
+    files = sorted(PKG.rglob("*.py")) + [ZOO]
+    assert len(files) > 40
+    bad = [(f.name, m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -53,14 +55,16 @@ def test_port_imports_with_jax_blocked():
         "mods = [m.name for m in pkgutil.walk_packages(\n"
         "    repro_torch.__path__, 'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
+        "import torch_graph_zoo\n"
         "assert not any(k.split('.')[0] in %r and sys.modules[k]\n"
         "               for k in list(sys.modules))\n"
         "print(len(mods))\n" % (FORBIDDEN, FORBIDDEN))
-    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(PKG.parent), str(ZOO.parent)]))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300, env=env)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    assert int(proc.stdout.split()[-1]) >= 20
+    assert int(proc.stdout.split()[-1]) >= 40
 
 
 @pytest.fixture
@@ -93,6 +97,26 @@ def test_entry_points_raise_without_a_card(no_card):
         main(["--requests", "1"])
 
 
+def test_planner_entry_points_raise_without_a_card(no_card):
+    import torch_graph_zoo as tz
+    from repro_torch.core import (ArenaExecutor, ParallaxConfig,
+                                  PlanExecutor, compile_plan)
+
+    g, make = tz.multihead_graph()
+    plan = compile_plan(g, ParallaxConfig(budget=1 << 30))
+    for mode in ("reference", "sequential", "parallax"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            PlanExecutor(plan, mode)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            PlanExecutor(plan, mode, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ArenaExecutor(plan)
+    ex = PlanExecutor(plan, device="cpu")
+    out = ex(make(np.random.default_rng(0))).outputs[g.outputs[0]]
+    assert out.device == torch.device("cpu")
+    assert ArenaExecutor(plan, device="cpu").device == torch.device("cpu")
+
+
 def test_serve_cli_on_cpu(capsys):
     from repro_torch.launch.serve import main
 
@@ -118,8 +142,22 @@ def _paged_args(device):
     return q, pool, tables, lens, new
 
 
+def _branch_args(device):
+    rng = np.random.default_rng(1)
+    xs = [torch.tensor(rng.standard_normal((8, 16), dtype=np.float32),
+                       device=device) for _ in range(3)]
+    ws = [torch.tensor(rng.standard_normal((16, 4), dtype=np.float32),
+                       device=device) for _ in range(3)]
+    return xs, ws
+
+
 def test_wrappers_take_the_plain_path_only_on_cpu(monkeypatch):
+    import importlib
+
     from repro_torch.kernels import _build
+    from repro_torch.kernels.branch_matmul import (branch_matmul_plain,
+                                                   grouped_branch_matmul)
+    from repro_torch.kernels.branch_matmul import launches as bm_launches
     from repro_torch.kernels.paged_attention import (
         launches, paged_append, paged_decode_attention,
         paged_decode_attention_plain)
@@ -128,17 +166,27 @@ def test_wrappers_take_the_plain_path_only_on_cpu(monkeypatch):
     def no_build(name):
         raise AssertionError(f"CPU tensors must not build {name}")
 
+    bm = importlib.import_module(
+        "repro_torch.kernels.branch_matmul.branch_matmul")
     monkeypatch.setattr(pa, "load", no_build)
+    monkeypatch.setattr(bm, "load", no_build)
     monkeypatch.setattr(_build, "load", no_build)
     before = dict(launches)
+    bm_before = dict(bm_launches)
     q, pool, tables, lens, new = _paged_args("cpu")
     got = paged_decode_attention(q, pool, pool, tables, lens)
     torch.testing.assert_close(
         got, paged_decode_attention_plain(q, pool, pool, tables, lens))
     paged_append(pool, pool.clone(), new, new, tables, lens,
                  torch.ones(2, dtype=torch.int32))
-    assert launches == before
+    xs, ws = _branch_args("cpu")
+    got = grouped_branch_matmul(xs, ws)
+    want = branch_matmul_plain(torch.stack(xs), torch.stack(ws))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert launches == before and bm_launches == bm_before
     # any other device: the kernel or an error, never the plain version
+    with pytest.raises(ValueError, match="no kernel"):
+        grouped_branch_matmul(*_branch_args("meta"))
     q, pool, tables, lens, new = _paged_args("meta")
     with pytest.raises(ValueError, match="no kernel"):
         paged_decode_attention(q, pool, pool, tables, lens)
@@ -150,9 +198,20 @@ def test_wrappers_take_the_plain_path_only_on_cpu(monkeypatch):
 def test_wrappers_launch_their_kernel_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.kernels.branch_matmul import (branch_matmul,
+                                                   branch_matmul_plain)
+    from repro_torch.kernels.branch_matmul import launches as bm_launches
     from repro_torch.kernels.paged_attention import (launches, paged_append,
                                                      paged_decode_attention)
 
+    xs, ws = _branch_args("cuda")
+    x, w = torch.stack(xs), torch.stack(ws)
+    n = bm_launches["branch_matmul"]
+    got = branch_matmul(x, w)
+    torch.cuda.synchronize()
+    assert bm_launches["branch_matmul"] == n + 1
+    torch.testing.assert_close(got, branch_matmul_plain(x, w), rtol=0,
+                               atol=2e-5)
     q, pool, tables, lens, new = _paged_args("cuda")
     before = dict(launches)
     paged_append(pool, pool.clone(), new, new, tables, lens, lens)

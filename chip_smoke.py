@@ -5,7 +5,7 @@
 Phases (each raises on failure; the script exits 0 only if all pass):
 
 1. card: the GPU's name and power limit, from ``nvidia-smi``;
-2. build: the three CUDA kernels from ``src/repro_torch/csrc/`` (one
+2. build: the five CUDA kernels from ``src/repro_torch/csrc/`` (one
    ``nvcc`` each, in parallel);
 3. kernels: the paged kernels against their plain PyTorch versions on
    the card at the serving path's shapes (B=8, H=K=32, D=80, block 16,
@@ -17,6 +17,16 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    K=80, N=2560) in fp32 and bf16, and a ragged ``parallel_branches``
    case (same tolerances; two launches bit-identical); median times by
    CUDA events beside the bound and, for ``branch_matmul``, ``torch.bmm``;
+   ``decode_attention`` on the model's ``(B, T, K, D)`` cache at the dense
+   path's shape (B=8, H=K=32, D=80, T=160, tile 16) in bf16 and fp32, a
+   GQA + window case at h2o-danube-3-4b widths (32/8 heads, D=120,
+   window 4096, T=8192), a ring cache with permuted positions and
+   T=4096, and bit-identical to ``paged_decode_attention`` on the same
+   K/V laid into a block pool; ``flash_attention`` at the prefill shape
+   (B=2, 32 heads, D=80, S=2048, causal) in bf16 and fp32, the
+   h2o-danube window case (B=1, S=6144) and a non-causal T > S case —
+   times beside their bounds and one ``scaled_dot_product_attention``
+   call each;
 4. serve: ``stablelm-3b`` at full width (32 layers, d_model 2560, bf16,
    random weights from ``torch.Generator`` seed 0) through
    ``ContinuousEngine`` with the paged pool, prefix sharing and megastep
@@ -25,13 +35,24 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    and read just after: every ``decode_fn`` call must launch each kernel
    once per layer;
 5. identity: the same workload at megastep 1 and with sharing off must
-   give bit-identical greedy streams;
+   give bit-identical greedy streams; then the dense-cache path: the
+   same workload through ``ContinuousEngine(paged=False)`` at megastep 8
+   and 1 (streams bit-identical to the paged run) and through the round
+   engine ``ServingEngine`` (streams compared; a divergence is printed
+   with the logits at its first step), each run with its launch counts
+   zeroed just before and read just after: 32 ``decode_attention``
+   launches per ``decode_fn`` call, none of the paged kernels; then
+   ``prefill_fn`` on B=2, S=2048: 32 ``flash_attention`` launches per
+   call, logits within a normwise 2e-2 of the same call with the plain
+   attention patched in, and on a 128-token prompt its argmax against
+   the first token of ``Stepper.prefill_chunk`` on the dense cache;
 6. reference: the reduced fp32 model on the card against the same
    weights on the CPU (plain versions), a few decode steps, fp32 2e-5;
    then where one full-width decode step spends its time (host clock,
    ``torch.profiler``);
 7. CLI: ``repro_torch.launch.serve.serve("stablelm-3b",
-   engine_mode="continuous")`` on the card;
+   engine_mode="continuous")`` on the card, then the entry point with
+   ``--engine round`` and with ``--no-paged``;
 8. planner A, the grouped kernel's path: ``torch_graph_zoo.multihead_graph
    (dim=2560, heads=32, seq=512)`` (one stablelm-3b attention layer at
    its widths, fp32) planned with the card's free memory as the §3.3
@@ -89,6 +110,18 @@ MODES = {                          # PlanExecutor keyword arguments
     "fused, kernel off": dict(use_branch_kernel=False),
 }
 
+# the dense-cache and prefill phases (slice 3)
+DA_LONG_T = 4096                   # decode_attention at a long context
+DANUBE = dict(H=32, K=8, D=120, window=4096)   # h2o-danube-3-4b widths
+FA_B, FA_S = 2, 2048               # flash_attention at the prefill shape
+FA_WINDOW_S = 6144                 # h2o-danube window case, B=1
+FA_CROSS = dict(B=2, S=448, T=1500)            # causal=False, T > S
+PREFILL_B, PREFILL_S, PREFILL_RUNS = 2, 2048, 5
+XCHECK_PROMPT = 128                # prefill_fn vs the stepper's prefill
+# prefill logits vs other paths: normwise (||a - b|| / ||b||), bf16 model
+PREFILL_TOL = 2e-2                 # kernel vs plain attention
+XCHECK_TOL = 5e-2                  # prefill_fn vs token-by-token decode
+
 KERNELS = {
     "paged_decode_attention": dict(
         source="src/repro_torch/csrc/paged_decode_attention.cu",
@@ -99,6 +132,12 @@ KERNELS = {
     "branch_matmul": dict(
         source="src/repro_torch/csrc/branch_matmul.cu",
         replaces="src/repro/kernels/branch_matmul/branch_matmul.py:45"),
+    "decode_attention": dict(
+        source="src/repro_torch/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention/decode_attention.py:72"),
+    "flash_attention": dict(
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:77"),
 }
 
 
@@ -245,6 +284,229 @@ def kernel_phase(pa, device):
 
 
 # --------------------------------------------------------------------------
+# phase 3c: decode_attention and flash_attention against their plain
+# versions, the paged kernel and SDPA
+# --------------------------------------------------------------------------
+
+def dense_decode_case(rng, B_, H_, K, D_, T, dtype, device, lens=None):
+    """q and a (B, T, K, D) cache seen as (B, K, T, D), the model's
+    layout; ragged lengths with an empty and a full row by default."""
+    q = torch.tensor(rng.standard_normal((B_, H_, D_)), dtype=dtype,
+                     device=device)
+    k, v = (torch.tensor(rng.standard_normal((B_, T, K, D_)), dtype=dtype,
+                         device=device).transpose(1, 2) for _ in range(2))
+    if lens is None:
+        lens = rng.integers(0, T, B_).astype(np.int32)
+        lens[0], lens[-1] = 0, T - 1
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device=device)
+
+
+def dense_decode_bound(q, k, pos, lens, window):
+    """Bytes the function must move: q, the valid K/V slots of each row,
+    pos, the lengths, the output; operations: 4 * D per (head, valid
+    slot)."""
+    B_, H_, D_ = q.shape
+    K = k.shape[1]
+    item = q.element_size()
+    valid = (pos[None, :] >= 0) & (pos[None, :] <= lens[:, None])
+    if window > 0:
+        valid &= pos[None, :] > lens[:, None] - window
+    n_tok = int(valid.sum())
+    nbytes = (2 * q.numel() * item + 2 * n_tok * K * D_ * item
+              + 4 * pos.numel() + 4 * B_)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * n_tok * H_ * D_ / PEAK_FLOPS[q.dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sdpa_decode(q, k, v, pos, lens, window):
+    """The library yardstick: one scaled_dot_product_attention call with
+    the validity mask."""
+    import torch.nn.functional as F
+
+    valid = (pos[None, :] >= 0) & (pos[None, :] <= lens[:, None])
+    if window > 0:
+        valid &= pos[None, :] > lens[:, None] - window
+    return F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=valid[:, None, None, :],
+        enable_gqa=True)[:, :, 0]
+
+
+def flash_pairs(S, T, causal, window):
+    """Valid (query, key) pairs of one head."""
+    i = np.arange(S)
+    hi = np.minimum(i, T - 1) if causal else np.full(S, T - 1)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(S, int)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_bound(q, k, causal, window):
+    B_, H_, S, D_ = q.shape
+    T = k.shape[2]
+    item = q.element_size()
+    nbytes = (2 * q.numel() + 2 * k.numel()) * item
+    flops = 4 * D_ * flash_pairs(S, T, causal, window) * B_ * H_
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sdpa_flash(q, k, v, causal, window):
+    import torch.nn.functional as F
+
+    S, T = q.shape[2], k.shape[2]
+    if window == 0:
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              enable_gqa=True)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(T, device=q.device)[None, :]
+    mask = kpos > qpos - window
+    if causal:
+        mask &= kpos <= qpos
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          enable_gqa=True)
+
+
+def check(name, label, got, want, dtype):
+    e = (got.float() - want.float()).abs().max().item()
+    log(f"{name} {label} {str(dtype)[6:]}: max abs err {e:.3e} (tol "
+        f"{TOL[dtype]})")
+    if not e <= TOL[dtype]:
+        raise AssertionError(f"{name} disagrees with its plain version "
+                             f"({label})")
+    return e
+
+
+def time_case(name, label, kernel, plain, library, bound, flush):
+    t = dict(ms=median_ms(kernel, flush), plain_ms=median_ms(plain, flush),
+             library_ms=median_ms(library, flush), bound=bound)
+    log(f"{name} {label}: kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, bound "
+        f"{bound[0]:.5f} ms ({bound[1]})")
+    return t
+
+
+def attention_phase(pa, da, fa, device):
+    """Returns ({name: max abs err}, {name: timing at the main-path
+    shape}) for decode_attention and flash_attention."""
+    rng = np.random.default_rng(2)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    err = {"decode_attention": 0.0, "flash_attention": 0.0}
+    timing, extra = {}, {}
+
+    def dec(label, q, k, v, pos, lens, window, tile=BS, timed=None):
+        got = da.decode_attention(q, k, v, pos, lens, window=window,
+                                  tile=tile)
+        want = da.decode_attention_plain(q, k, v, pos, lens, window)
+        torch.cuda.synchronize()
+        err["decode_attention"] = max(err["decode_attention"], check(
+            "decode_attention", label, got, want, q.dtype))
+        if timed is not None:
+            timed[label] = time_case(
+                "decode_attention", label,
+                lambda: da.decode_attention(q, k, v, pos, lens,
+                                            window=window, tile=tile),
+                lambda: da.decode_attention_plain(q, k, v, pos, lens,
+                                                  window),
+                lambda: sdpa_decode(q, k, v, pos, lens, window),
+                dense_decode_bound(q, k, pos, lens, window), flush)
+        return got
+
+    T = MAX_CONTEXT
+    arange = torch.arange(T, dtype=torch.int32, device=device)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, lens = dense_decode_case(rng, B, H, H, D, T, dtype, device)
+        got = dec(f"B={B} H=K={H} D={D} T={T} ragged", q, k, v, arange,
+                  lens, 0)
+        # the paged kernel on the same K/V laid into a block pool
+        tables = torch.randperm(B * BPR, device=device).reshape(B, BPR).int()
+        pools = []
+        for c in (k, v):
+            pool = torch.zeros(B * BPR + 1, BS, H, D, dtype=dtype,
+                               device=device)
+            pool[tables.long().reshape(-1)] = c.transpose(1, 2).reshape(
+                B * BPR, BS, H, D)
+            pools.append(pool)
+        paged = pa.paged_decode_attention(q, *pools, tables, lens)
+        torch.cuda.synchronize()
+        same = torch.equal(got, paged)
+        log(f"decode_attention {str(dtype)[6:]} tile={BS}, pos=arange vs "
+            f"paged_decode_attention on the same K/V: "
+            f"{'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError("decode_attention is not bit-identical "
+                                 "to paged_decode_attention")
+        if dtype == torch.bfloat16:
+            at100 = torch.full((B,), 100, dtype=torch.int32, device=device)
+            dec("main path, every row at 100", q, k, v, arange, at100, 0,
+                timed=timing)
+            dec("main path, every row full", q, k, v, arange,
+                torch.full((B,), T - 1, dtype=torch.int32, device=device),
+                0, timed=extra)
+    # GQA and a window at h2o-danube widths, T = 8192
+    d = DANUBE
+    q, k, v, lens = dense_decode_case(
+        rng, B, d["H"], d["K"], d["D"], 8192, torch.bfloat16, device,
+        lens=np.full(B, 8191, np.int32))
+    dec(f"GQA {d['H']}/{d['K']} D={d['D']} T=8192 window={d['window']}",
+        q, k, v, torch.arange(8192, dtype=torch.int32, device=device),
+        lens, d["window"], timed=extra)
+    # a ring cache: positions permuted, empty slots, scalar length
+    q, k, v, _ = dense_decode_case(rng, B, H, H, D, T, torch.float32,
+                                   device)
+    ring = rng.permutation(np.arange(300 - T + 1, 301)).astype(np.int32)
+    ring[:7] = -1
+    dec(f"ring T={T} permuted pos, window 120", q, k, v,
+        torch.tensor(ring, device=device), 300, 120)
+    # a long context
+    q, k, v, lens = dense_decode_case(
+        rng, B, H, H, D, DA_LONG_T, torch.bfloat16, device,
+        lens=np.full(B, DA_LONG_T - 1, np.int32))
+    dec(f"long context T={DA_LONG_T} full", q, k, v,
+        torch.arange(DA_LONG_T, dtype=torch.int32, device=device), lens, 0,
+        timed=extra)
+
+    def flash(label, B_, H_, K, S, T_, D_, causal, window, dtype,
+              timed=None):
+        q, k, v = (torch.tensor(rng.standard_normal(shape), dtype=dtype,
+                                device=device)
+                   for shape in ((B_, H_, S, D_), (B_, K, T_, D_),
+                                 (B_, K, T_, D_)))
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = fa.flash_attention_plain(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        err["flash_attention"] = max(err["flash_attention"], check(
+            "flash_attention", label, got, want, dtype))
+        del want
+        if timed is not None:
+            timed[label] = time_case(
+                "flash_attention", label,
+                lambda: fa.flash_attention(q, k, v, causal=causal,
+                                           window=window),
+                lambda: fa.flash_attention_plain(q, k, v, causal, window),
+                lambda: sdpa_flash(q, k, v, causal, window),
+                flash_bound(q, k, causal, window), flush)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        flash(f"B={FA_B} H=K={H} S=T={FA_S} D={D} causal", FA_B, H, H,
+              FA_S, FA_S, D, True, 0, dtype,
+              timed=timing if dtype == torch.bfloat16 else extra)
+    flash(f"h2o-danube B=1 {d['H']}/{d['K']} S=T={FA_WINDOW_S} D={d['D']} "
+          f"window={d['window']}", 1, d["H"], d["K"], FA_WINDOW_S,
+          FA_WINDOW_S, d["D"], True, d["window"], torch.bfloat16,
+          timed=extra)
+    c = FA_CROSS
+    flash(f"cross B={c['B']} S={c['S']} T={c['T']} causal=False", c["B"],
+          H, H, c["S"], c["T"], D, False, 0, torch.bfloat16)
+    timing["decode_attention"] = timing.pop("main path, every row at 100")
+    timing["flash_attention"] = timing.pop(
+        f"B={FA_B} H=K={H} S=T={FA_S} D={D} causal")
+    del flush
+    torch.cuda.empty_cache()
+    return err, timing
+
+
+# --------------------------------------------------------------------------
 # phases 4-5: full-width serving
 # --------------------------------------------------------------------------
 
@@ -266,14 +528,14 @@ def requests(vocab):
     return out
 
 
-def serve_full_width(api, params, megastep, sharing):
+def serve_full_width(api, params, megastep, sharing, paged=True):
     from repro_torch.runtime.config import EngineConfig
     from repro_torch.runtime.engine import ContinuousEngine
 
     eng = ContinuousEngine(api, params, device=api.device,
                            config=EngineConfig(
                                hbm_budget=4 << 30, max_batch=B,
-                               megastep=megastep, paged=True,
+                               megastep=megastep, paged=paged,
                                prefix_sharing=sharing, block_size=BS,
                                max_context=MAX_CONTEXT))
     reqs = requests(api.cfg.vocab_size)
@@ -304,6 +566,215 @@ def serve_full_width(api, params, megastep, sharing):
                                            for t in toks):
             raise AssertionError("malformed stream")
     return streams, eng, wall
+
+
+# --------------------------------------------------------------------------
+# phases 5b-5c: the dense-cache serving path and full-sequence prefill
+# --------------------------------------------------------------------------
+
+def serve_round(api, params):
+    """The round engine on the same requests, all submitted up front; its
+    cache is sized per round (max_context=None: the longest request,
+    rounded up to 32 slots)."""
+    from repro_torch.runtime.config import EngineConfig
+    from repro_torch.runtime.engine import ServingEngine
+
+    eng = ServingEngine(api, params, device=api.device, config=EngineConfig(
+        hbm_budget=4 << 30, max_batch=B, max_context=None, block_size=BS))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in requests(api.cfg.vocab_size):
+        eng.submit(r)
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if sorted(done) != list(range(8)) or not all(c.ok for c in done.values()):
+        raise AssertionError("round engine: not every request completed")
+    return {k: c.tokens for k, c in done.items()}, eng, wall
+
+
+def first_divergence(api, params, a, b, rid):
+    """Logits of request ``rid`` at the first step where streams ``a`` and
+    ``b`` part, recomputed by token-by-token dense decode of the prompt
+    and the common prefix (B=1): the two tokens' logits and their gap."""
+    from repro_torch.runtime.sampling import greedy_serving
+
+    req = requests(api.cfg.vocab_size)[rid]
+    step = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+    toks = list(req.prompt) + a[:step]
+    caches = api.init_caches(1, len(toks) + 1, tile=BS)
+    with torch.no_grad():
+        for i, t in enumerate(toks):
+            logits, caches = api.decode_fn(params, caches, {
+                "tokens": torch.tensor([[t]], device=api.device),
+                "cache_len": i})
+    lg = logits[0].float()
+    return (f"request {rid} step {step}: tokens {a[step]} / {b[step]}, "
+            f"logits {lg[a[step]].item():.4f} / {lg[b[step]].item():.4f} "
+            f"(gap {abs(lg[a[step]] - lg[b[step]]).item():.4f}); greedy "
+            f"argmax here {int(greedy_serving(logits)[0])}")
+
+
+def dense_serve_phase(api, params, calls, paged_streams, pa, da):
+    """Phase 5b: the paged run's workload through ContinuousEngine(paged=
+    False) at megastep 8 and 1 and through ServingEngine.  Each run
+    zeroes the launch counts just before and reads them just after;
+    returns the decode_attention launches of the three runs."""
+    total = 0
+    runs = (("continuous dense, megastep 8", 8),
+            ("continuous dense, megastep 1", 1), ("round engine", None))
+    streams_of = {}
+    for label, megastep in runs:
+        calls[0] = 0
+        pa.reset_launches()
+        da.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if megastep is None:
+            streams, eng, wall = serve_round(api, params)
+        else:
+            streams, eng, wall = serve_full_width(api, params, megastep,
+                                                  False, paged=False)
+        launched = da.launches["decode_attention"]
+        peak = torch.cuda.max_memory_allocated()
+        n_tok = sum(len(t) for t in streams.values())
+        log(f"dense: {label}: 8/8 requests, {n_tok} tokens in {wall:.3f} "
+            f"s ({n_tok / wall:.1f} tok/s), {eng.dispatches} dispatches "
+            f"({eng.dispatches / n_tok:.4f} per token), {calls[0]} "
+            f"decode_fn calls, decode_attention launches {launched}, "
+            f"paged launches {dict(pa.launches)}, peak device memory "
+            f"{peak / 2**30:.2f} GiB")
+        if launched != api.cfg.num_layers * calls[0] or calls[0] == 0:
+            raise AssertionError(f"{label}: {launched} decode_attention "
+                                 f"launches for {calls[0]} decode_fn calls")
+        if any(pa.launches.values()):
+            raise AssertionError(f"{label}: the paged kernels launched")
+        total += launched
+        streams_of[label] = streams
+    for label, streams in streams_of.items():
+        same = streams == paged_streams
+        log(f"dense: {label}: streams "
+            f"{'bit-identical to' if same else 'DIFFER from'} the paged run")
+        if same:
+            continue
+        for rid in sorted(streams):
+            if streams[rid] != paged_streams[rid]:
+                log("dense:   first divergence: " + first_divergence(
+                    api, params, streams[rid], paged_streams[rid], rid))
+                break
+        if label.startswith("continuous"):
+            raise AssertionError(f"{label}: streams differ from the paged "
+                                 f"run")
+    return total
+
+
+def normwise(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def prefill_phase(api, params, fa, device):
+    """Phase 5c: prefill_fn at B=2, S=2048 through flash_attention, held
+    to the same call with the plain version patched in, and to the
+    token-by-token path on a 128-token prompt.  Returns the launches of
+    one prefill_fn call."""
+    import importlib
+
+    from repro_torch.runtime.sampling import greedy_serving
+    from repro_torch.runtime.stepper import Stepper
+
+    cfg = api.cfg
+    rng = np.random.default_rng(3)
+    tokens = torch.tensor(rng.integers(0, cfg.vocab_size,
+                                       (PREFILL_B, PREFILL_S)),
+                          dtype=torch.int32, device=device)
+    batch = {"tokens": tokens}
+    with torch.no_grad():
+        api.prefill_fn(params, batch)                      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        logits = api.prefill_fn(params, batch)
+        torch.cuda.synchronize()
+        launched = fa.launches["flash_attention"]
+        peak = torch.cuda.max_memory_allocated()
+        walls = []
+        for _ in range(PREFILL_RUNS):
+            t0 = time.perf_counter()
+            api.prefill_fn(params, batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        if logits.shape != (PREFILL_B, cfg.vocab_size) \
+                or not torch.isfinite(logits).all():
+            raise AssertionError("prefill_fn: malformed logits")
+        if launched != cfg.num_layers:
+            raise AssertionError(f"prefill_fn: {launched} flash_attention "
+                                 f"launches, expected {cfg.num_layers}")
+        mod = importlib.import_module(
+            "repro_torch.kernels.flash_attention.flash_attention")
+        kernel = mod.flash_attention
+        mod.flash_attention = mod.flash_attention_plain
+        try:
+            plain = api.prefill_fn(params, batch)
+        finally:
+            mod.flash_attention = kernel
+        torch.cuda.synchronize()
+    rel = normwise(logits, plain)
+    same_argmax = torch.equal(greedy_serving(logits), greedy_serving(plain))
+    log(f"prefill: prefill_fn B={PREFILL_B} S={PREFILL_S} at full width: "
+        f"{launched} flash_attention launches per call, "
+        f"{float(np.median(walls)):.3f} ms per call (median of "
+        f"{PREFILL_RUNS}, {min(walls):.3f}-{max(walls):.3f}), peak device "
+        f"memory {peak / 2**30:.2f} GiB; vs the plain attention: max abs "
+        f"{(logits.float() - plain.float()).abs().max().item():.3e} on "
+        f"|logits| <= {plain.float().abs().max().item():.2f}, normwise "
+        f"{rel:.3e} (tol {PREFILL_TOL}), argmax "
+        f"{'equal' if same_argmax else 'DIFFERS'}")
+    if not rel <= PREFILL_TOL:
+        raise AssertionError("prefill_fn off its plain-attention version")
+    # how far each bf16 path lies from an fp32 evaluation of the same
+    # weights: the kernel should add no more error than the plain version
+    from repro_torch.models import build_model
+
+    api32 = build_model(cfg, device=device, dtype="float32")
+    p32 = api32.init(None)
+    p32.load_state_dict(params.state_dict())
+    with torch.no_grad():
+        ref32 = api32.prefill_fn(p32, batch)
+    torch.cuda.synchronize()
+    log(f"prefill: vs an fp32 evaluation of the same weights (fp32 "
+        f"flash_attention): kernel path normwise {normwise(logits, ref32):.3e}"
+        f", plain path {normwise(plain, ref32):.3e}")
+    del api32, p32, ref32, plain
+    torch.cuda.empty_cache()
+
+    # the two serving paths on one 128-token prompt
+    prompt = tokens[:1, :XCHECK_PROMPT]
+    with torch.no_grad():
+        full = api.prefill_fn(params, {"tokens": prompt})
+        stepper = Stepper(api)
+        caches = api.init_caches(1, XCHECK_PROMPT, tile=BS)
+        _, _, first, _ = stepper.prefill_chunk(
+            params, caches, prompt.cpu().numpy(), np.zeros(1, np.int32),
+            np.full(1, XCHECK_PROMPT, np.int32))
+        caches = api.init_caches(1, XCHECK_PROMPT, tile=BS)
+        for i in range(XCHECK_PROMPT):                     # scalar path
+            step, caches = api.decode_fn(params, caches, {
+                "tokens": prompt[:, i:i + 1], "cache_len": i})
+    a_full = int(greedy_serving(full)[0])
+    a_step = int(first[0])
+    gap = (full[0, a_full].float() - full[0, a_step].float()).abs().item()
+    rel = normwise(full, step)
+    log(f"prefill: {XCHECK_PROMPT}-token prompt: prefill_fn argmax "
+        f"{a_full}, Stepper.prefill_chunk first token {a_step} (dense "
+        f"cache), scalar decode argmax {int(greedy_serving(step)[0])}; "
+        f"prefill_fn vs token-by-token logits: normwise {rel:.3e} (tol "
+        f"{XCHECK_TOL}), gap between the two argmaxes {gap:.4f}")
+    if a_step != int(greedy_serving(step)[0]):
+        raise AssertionError("vector and scalar dense decode disagree")
+    if not rel <= XCHECK_TOL or (a_full != a_step and not gap <= (
+            full.float() - step.float()).abs().max().item()):
+        raise AssertionError("prefill_fn and the decode path disagree")
+    return launched
 
 
 def step_profile(api, params, device):
@@ -678,6 +1149,8 @@ def main() -> int:
     from repro_torch.device import deterministic
     from repro_torch.kernels import _build
     from repro_torch.kernels import branch_matmul as bm
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import build_model
 
@@ -693,6 +1166,9 @@ def main() -> int:
     log(f"build: {_build.build():.2f} s for {', '.join(KERNELS)}")
     err, timing = kernel_phase(pa, device)
     err["branch_matmul"], timing["branch_matmul"] = branch_phase(bm, device)
+    e2, t2 = attention_phase(pa, da, fa, device)
+    err.update(e2)
+    timing.update(t2)
 
     # phase 4: the main path at full width
     cfg = get_config("stablelm-3b")
@@ -742,8 +1218,14 @@ def main() -> int:
             f"{e2.dispatches} dispatches)")
         if not same:
             raise AssertionError("greedy streams differ")
+    del eng, e2
+    main_launches["decode_attention"] = dense_serve_phase(
+        api, params, calls, streams, pa, da)
+    main_launches["flash_attention"] = prefill_phase(api, params, fa,
+                                                     device)
     step_profile(api, params, device)
-    del api, params, eng, e2
+    del api, params
+    gc.collect()
     torch.cuda.empty_cache()
 
     reference_phase(device)
@@ -754,6 +1236,11 @@ def main() -> int:
         raise AssertionError("CLI serve did not complete every request")
     log(f"cli: serve('stablelm-3b', engine_mode='continuous') completed "
         f"{len(done)} requests on {torch.cuda.get_device_name(0)}")
+    from repro_torch.launch.serve import main as serve_main
+    for argv in (["--engine", "round"], ["--no-paged"]):
+        log(f"cli: python -m repro_torch.launch.serve {' '.join(argv)} "
+            f"--requests 4 --max-new 8")
+        serve_main(argv + ["--requests", "4", "--max-new", "8"])
 
     gc.collect()                   # the CLI's model, before the planner
     torch.cuda.empty_cache()

@@ -21,32 +21,19 @@
 // scalar prefetch), and stops at the last block that holds a valid
 // position — blocks past cache_len (and wholly before the window) are
 // masked in the TPU kernel's walk and skipped here, which yields the same
-// result.  The reduction order is fixed (one warp per score, tree order
-// inside the warp; one thread per head for max and sum; serial over the
-// block's tokens for P.V): no split over blocks and no atomics, so a row's
-// result never depends on the other rows or on the launch.
+// result.  The reduction order is fixed (decode_tile.cuh, shared with the
+// dense decode_attention.cu, so the two agree bit for bit at tile = bs):
+// no split over blocks and no atomics, so a row's result never depends on
+// the other rows or on the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "decode_tile.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using decode_tile::kThreads;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -60,28 +47,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int kh = blockIdx.x;            // KV head
   const int b = blockIdx.y;             // row
   const int G = H / K;                  // query heads per KV head
-  const int GD = G * D;
-  float* q_s = smem;                    // (G, D) scaled query
-  float* acc = q_s + GD;                // (G, D) running P.V
-  float* p_s = acc + GD;                // (G, bs) scores, then weights
-  float* m_s = p_s + G * bs;            // (G,) running max
-  float* l_s = m_s + G;                 // (G,) running denominator
-  float* a_s = l_s + G;                 // (G,) rescale of this block
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
-
-  const T* qb = q + ((size_t)b * H + (size_t)kh * G) * D;
-  for (int i = tid; i < GD; i += blockDim.x) {
-    q_s[i] = to_float(qb[i]) * scale;
-    acc[i] = 0.f;
-  }
-  if (tid < G) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
+  const size_t head0 = (size_t)b * H + (size_t)kh * G;
+  const decode_tile::State st =
+      decode_tile::begin(smem, q + head0 * D, G, D, bs, scale);
 
   const int len = cache_len[b];
   // logical blocks holding positions 0..len, clipped to the table
@@ -94,66 +62,16 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const size_t tok_stride = (size_t)K * D;          // one token of a block
   const size_t row_stride = (size_t)bs * tok_stride;  // one pool row
   const int* tb = tables + (size_t)b * bpr;
-  __syncthreads();
 
   for (int i = i0; i < n_blk; ++i) {
     const size_t base = (size_t)tb[i] * row_stride + (size_t)kh * D;
-    const T* kb = k_pool + base;
-    const T* vb = v_pool + base;
-    // scores: one warp per (head, token)
-    for (int w = warp; w < G * bs; w += n_warps) {
-      const int g = w / bs;
-      const int t = w - g * bs;
-      const T* kr = kb + (size_t)t * tok_stride;
-      const float* qg = q_s + g * D;
-      float sum = 0.f;
-      for (int d = lane; d < D; d += 32) sum += qg[d] * to_float(kr[d]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const int pos = i * bs + t;
-        bool valid = pos <= len;
-        if (window > 0) valid = valid && pos > len - window;
-        p_s[w] = valid ? sum : kNegInf;
-      }
-    }
-    __syncthreads();
-    // online-softmax state: one thread per head, serial over the block
-    if (tid < G) {
-      float* s = p_s + tid * bs;
-      float mx = s[0];
-      for (int t = 1; t < bs; ++t) mx = fmaxf(mx, s[t]);
-      const float m_prev = m_s[tid];
-      const float m_new = fmaxf(m_prev, mx);
-      float psum = 0.f;
-      for (int t = 0; t < bs; ++t) {
-        const float p = expf(s[t] - m_new);
-        s[t] = p;
-        psum += p;
-      }
-      const float alpha = expf(m_prev - m_new);
-      l_s[tid] = l_s[tid] * alpha + psum;
-      m_s[tid] = m_new;
-      a_s[tid] = alpha;
-    }
-    __syncthreads();
-    // acc = acc * alpha + P.V: one thread per (head, dim), serial over t
-    for (int j = tid; j < GD; j += blockDim.x) {
-      const int g = j / D;
-      const int d = j - g * D;
-      const float* p = p_s + g * bs;
-      float pv = 0.f;
-      for (int t = 0; t < bs; ++t)
-        pv += p[t] * to_float(vb[(size_t)t * tok_stride + d]);
-      acc[j] = acc[j] * a_s[g] + pv;
-    }
-    __syncthreads();
+    decode_tile::fold(st, k_pool + base, v_pool + base, tok_stride, bs,
+                      [=](int t) {
+                        return decode_tile::position_valid(i * bs + t, len,
+                                                           window);
+                      });
   }
-
-  T* ob = out + ((size_t)b * H + (size_t)kh * G) * D;
-  for (int j = tid; j < GD; j += blockDim.x)
-    ob[j] = from_float<T>(acc[j] / fmaxf(l_s[j / D], 1e-30f));
+  decode_tile::finish(st, out + head0 * D);
 }
 
 template <typename T>
@@ -161,8 +79,9 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
            const int* tables, const int* cache_len, void* out, int B, int H,
            int K, int D, int bs, int bpr, int window, float scale,
            cudaStream_t stream) {
-  const int G = H / K;
-  const size_t shmem = sizeof(float) * (2 * G * D + G * bs + 3 * G);
+  const size_t shmem = decode_tile::smem_bytes(H / K, D, bs);
+  cudaError_t err = decode_tile::allow_smem(paged_decode_kernel<T>, shmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(K, B);
   paged_decode_kernel<T><<<grid, kThreads, shmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),

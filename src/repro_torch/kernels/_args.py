@@ -1,0 +1,39 @@
+"""Argument checks shared by the kernel wrappers.
+
+Every wrapper runs its plain PyTorch version for CPU tensors and
+otherwise hands raw pointers to a CUDA kernel, which checks nothing
+itself: the device, type, shape and layout of each argument are checked
+here, in Python, before a launch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+#: the kernels' ``dtype`` codes
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def rows(x, B: int, like: torch.Tensor) -> torch.Tensor:
+    """Scalar or (B,) -> contiguous (B,) int32 on ``like``'s device."""
+    x = torch.as_tensor(x, dtype=torch.int32, device=like.device)
+    if x.ndim > 1:
+        raise ValueError(f"expected a scalar or (B,) vector, got shape "
+                         f"{tuple(x.shape)}")
+    return x.reshape(-1).expand(B).contiguous()
+
+
+def check_cuda(name: str, tensors: dict, dtype: torch.dtype) -> None:
+    """All ``tensors`` contiguous on one device; ``dtype`` a kernel
+    type."""
+    device = next(iter(tensors.values())).device
+    for arg, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {arg} on {t.device}, expected "
+                             f"{device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: kernel takes float32 or bfloat16, got "
+                        f"{dtype}")

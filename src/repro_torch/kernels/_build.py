@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles into its own shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), for
 ``sm_90a``.  Libraries go to ``build/kernels/`` at the repository root
-and carry a hash of their source in the file name, so an edited source
-rebuilds and a stale library is never loaded.  Nothing is built when a
+and carry a hash of their source in the file name — the ``.cu`` file and
+every ``csrc/`` header it includes with ``#include "..."`` — so an edited
+source or header rebuilds and a stale library is never loaded.  Nothing is built when a
 module is imported: the first launch builds, or :func:`build` builds
 several sources at once, one ``nvcc`` process each, all started together.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -27,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of every kernel entry point: argtypes, so pointers and the
 # stream go through as 64-bit values (ctypes would pass ints as 32-bit)
 SIGNATURES = {
@@ -35,7 +38,12 @@ SIGNATURES = {
     "paged_append": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _I, _P),
     "branch_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _L, _L, _L, _I, _F, _I, _P),
+    "flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _F, _I, _P),
 }
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _loaded: "dict[str, ctypes.CDLL]" = {}
 
@@ -48,10 +56,23 @@ def _nvcc() -> str:
     return found
 
 
+def _sources(path: Path, seen: "dict[Path, bytes]") -> None:
+    """``path`` and, recursively, the local headers it includes."""
+    if path in seen:
+        return
+    seen[path] = path.read_bytes()
+    for inc in _INCLUDE.findall(seen[path]):
+        _sources(path.parent / inc.decode(), seen)
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    seen: "dict[Path, bytes]" = {}
+    _sources(CSRC / f"{name}.cu", seen)
+    h = hashlib.sha1()
+    for path in sorted(seen):
+        h.update(path.name.encode() + b"\0" + seen[path])
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=tuple(SIGNATURES)) -> float:

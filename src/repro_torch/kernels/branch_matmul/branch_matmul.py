@@ -17,9 +17,9 @@ from __future__ import annotations
 
 import torch
 
+from .._args import KERNEL_DTYPES
 from .._build import load
 
-KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_YZ = 65535            # CUDA's limit on gridDim.y and gridDim.z
 BLOCK_M = 64                   # output rows per block (csrc: BM)
 

@@ -26,10 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._args import KERNEL_DTYPES, NEG_INF, check_cuda, rows
 from .._build import load
-
-NEG_INF = -1e30
-KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 launches = {"paged_decode_attention": 0, "paged_append": 0}
@@ -38,28 +36,6 @@ launches = {"paged_decode_attention": 0, "paged_append": 0}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
-
-
-def _rows(x, B: int, like: torch.Tensor) -> torch.Tensor:
-    """Scalar or (B,) -> contiguous (B,) int32 on ``like``'s device."""
-    x = torch.as_tensor(x, dtype=torch.int32, device=like.device)
-    if x.ndim > 1:
-        raise ValueError(f"expected a scalar or (B,) vector, got shape "
-                         f"{tuple(x.shape)}")
-    return x.reshape(-1).expand(B).contiguous()
-
-
-def _check_cuda(name: str, tensors: dict, dtype: torch.dtype) -> None:
-    device = next(iter(tensors.values())).device
-    for arg, t in tensors.items():
-        if t.device != device:
-            raise ValueError(f"{name}: {arg} on {t.device}, expected "
-                             f"{device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
-    if dtype not in KERNEL_DTYPES:
-        raise TypeError(f"{name}: kernel takes float32 or bfloat16, got "
-                        f"{dtype}")
 
 
 # --------------------------------------------------------------------------
@@ -80,7 +56,7 @@ def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, cache_len,
     v = v_pool[tables].reshape(B, T, K, D).float()
     qf = q.float().reshape(B, K, H // K, D) * np.float32(1.0 / np.sqrt(D))
     s = torch.einsum("bkgd,btkd->bkgt", qf, k)
-    lens = _rows(cache_len, B, q)[:, None]
+    lens = rows(cache_len, B, q)[:, None]
     t = torch.arange(T, device=q.device, dtype=torch.int32)[None, :]
     valid = t <= lens
     if window > 0:
@@ -115,13 +91,13 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len, *,
                                             cache_len, window)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: no kernel for {q.device}")
-    lens = _rows(cache_len, B, q)
+    lens = rows(cache_len, B, q)
     if block_tables.dtype != torch.int32:
         raise TypeError("paged_decode_attention: block_tables must be int32")
     if q.dtype != k_pool.dtype or q.dtype != v_pool.dtype:
         raise TypeError(f"paged_decode_attention: q {q.dtype}, pools "
                         f"{k_pool.dtype}/{v_pool.dtype}")
-    _check_cuda("paged_decode_attention",
+    check_cuda("paged_decode_attention",
                 dict(q=q, k_pool=k_pool, v_pool=v_pool,
                      block_tables=block_tables, cache_len=lens), q.dtype)
     if H // K > 128:
@@ -169,8 +145,8 @@ def paged_append_plain(k_pool, v_pool, k_new, v_new, block_tables, lens,
     """Plain PyTorch version of :func:`paged_append` (in place)."""
     nb1, bs, K, D = k_pool.shape
     B, C = k_new.shape[:2]
-    row, slot, keep = _append_targets(block_tables, _rows(lens, B, k_pool),
-                                      _rows(n_valid, B, k_pool), B, C, bs,
+    row, slot, keep = _append_targets(block_tables, rows(lens, B, k_pool),
+                                      rows(n_valid, B, k_pool), B, C, bs,
                                       nb1 - 1)
     row, slot = row[keep], slot[keep]
     k_pool[row, slot] = k_new.reshape(B * C, K, D)[keep].to(k_pool.dtype)
@@ -203,15 +179,15 @@ def paged_append(k_pool, v_pool, k_new, v_new, block_tables, lens,
                                   block_tables, lens, n_valid)
     if k_pool.device.type != "cuda":
         raise ValueError(f"paged_append: no kernel for {k_pool.device}")
-    lens = _rows(lens, B, k_pool)
-    n_valid = _rows(n_valid, B, k_pool)
+    lens = rows(lens, B, k_pool)
+    n_valid = rows(n_valid, B, k_pool)
     if block_tables.dtype != torch.int32:
         raise TypeError("paged_append: block_tables must be int32")
     dt = k_pool.dtype
     if not (v_pool.dtype == k_new.dtype == v_new.dtype == dt):
         raise TypeError(f"paged_append: pools {dt}/{v_pool.dtype}, new "
                         f"{k_new.dtype}/{v_new.dtype}")
-    _check_cuda("paged_append",
+    check_cuda("paged_append",
                 dict(k_pool=k_pool, v_pool=v_pool, k_new=k_new, v_new=v_new,
                      block_tables=block_tables, lens=lens, n_valid=n_valid),
                 dt)

@@ -13,11 +13,16 @@ is generated from :class:`repro_torch.runtime.config.EngineConfig` — run
 ``--help`` for the table.  An omitted flag falls back to its
 ``PARALLAX_*`` env var, then the field default.
 
-``--engine continuous`` serves through the iteration-level slot-table
-engine on the paged block KV cache with cross-request prefix sharing.
-``--engine round`` (the round-based baseline) and ``--no-paged`` arrive
-with the dense-cache slice.  ``--device`` defaults to ``cuda`` and the
-run fails without a card unless ``--device cpu`` is given.
+``--engine continuous`` (this entry point's default) serves through the
+iteration-level slot-table engine on the paged block KV cache with
+cross-request prefix sharing; ``--no-paged`` gives it dense per-slot
+caches instead.  ``--engine round`` (the JAX entry point's default)
+runs the round-based baseline ``ServingEngine`` on a fresh dense cache
+per round, sized to the round's longest request unless
+``--max-context`` is given.  Fault injection, backpressure, deadlines,
+the host KV tier and open-loop arrivals harden the continuous engine
+only.  ``--device`` defaults to ``cuda`` and the run fails without a card
+unless ``--device cpu`` is given.
 
 Like the JAX entry point, :func:`serve` runs the arch's ``reduced()``
 config with random weights from ``--seed``.  **Closed loop** (the
@@ -40,22 +45,18 @@ import torch
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.models import build_model
 from repro_torch.runtime.config import EngineConfig
-from repro_torch.runtime.engine import ContinuousEngine, Request
+from repro_torch.runtime.engine import (ContinuousEngine, Request,
+                                       ServingEngine)
 from repro_torch.runtime.faults import FaultPlane
 from repro_torch.runtime.telemetry import Telemetry
 from repro_torch.runtime.workload import (OpenLoopWorkload, percentile,
                                           run_open_loop)
 
-ROUND_ENGINE_SLICE = ("--engine round (the round-based ServingEngine) "
-                      "arrives with the dense-cache slice of the port, "
-                      "with the decode_attention kernel; use --engine "
-                      "continuous")
-
 
 def serve(arch: str, n_requests: int = 8, max_new: int = 16,
           budget_mb: int = 256, prompt_len: int = 12, seed: int = 0,
           max_batch: int = 4, engine_mode: str = "continuous",
-          megastep: "int | None" = None,
+          paged: bool = True, megastep: "int | None" = None,
           fault_seed: "int | None" = None,
           max_queue: "int | None" = None,
           deadline_s: "float | None" = None,
@@ -65,8 +66,8 @@ def serve(arch: str, n_requests: int = 8, max_new: int = 16,
           arrival_rate: "float | None" = None,
           trace_file: "str | None" = None,
           device=None):
-    if engine_mode != "continuous":
-        raise NotImplementedError(ROUND_ENGINE_SLICE)
+    if engine_mode not in ("round", "continuous"):
+        raise ValueError(f"unknown engine {engine_mode!r}")
     cfg = get_config(arch).reduced()
     api = build_model(cfg, device=device)
     params = api.init(torch.Generator(device=api.device).manual_seed(seed))
@@ -75,15 +76,23 @@ def serve(arch: str, n_requests: int = 8, max_new: int = 16,
         # a kwarg left at None is unset and falls through EngineConfig's
         # env-then-default resolution
         config = EngineConfig(
-            hbm_budget=budget_mb << 20, max_batch=max_batch,
-            max_context=prompt_len + max_new,
+            hbm_budget=budget_mb << 20, max_batch=max_batch, paged=paged,
+            max_context=(prompt_len + max_new
+                         if engine_mode == "continuous" else None),
             **{k: v for k, v in dict(
                 megastep=megastep, fault_seed=fault_seed,
                 max_queue=max_queue, host_pool=host_pool).items()
                if v is not None})
+    open_loop = arrival_rate is not None or trace_file is not None
+    if engine_mode != "continuous" and (
+            config.fault_seed is not None or max_queue is not None
+            or deadline_s is not None or host_pool is not None
+            or open_loop):
+        raise ValueError("fault plane / backpressure / deadlines / host "
+                         "KV tier / open-loop arrivals harden the "
+                         "continuous engine only (--engine continuous)")
 
     workload = None
-    open_loop = arrival_rate is not None or trace_file is not None
     if open_loop:
         if trace_file is not None:
             workload = OpenLoopWorkload.from_trace(
@@ -103,18 +112,22 @@ def serve(arch: str, n_requests: int = 8, max_new: int = 16,
     else:
         request_ids = list(range(n_requests))
 
-    engine = ContinuousEngine(api, params, config=config, telemetry=tele,
-                              device=api.device)
     faults = None
-    if config.fault_seed is not None:
-        # the schedule's budget events are absolute post-margin byte
-        # values, so derive them from the pool's real budget
-        faults = FaultPlane.random(
-            config.fault_seed, budget_bytes=engine.kv.budget,
-            request_ids=request_ids, max_batch=config.max_batch)
-        engine.faults = faults
-        print(f"fault plane armed: seed {config.fault_seed}, "
-              f"{len(faults.events)} events")
+    if engine_mode == "continuous":
+        engine = ContinuousEngine(api, params, config=config,
+                                  telemetry=tele, device=api.device)
+        if config.fault_seed is not None:
+            # the schedule's budget events are absolute post-margin
+            # byte values, so derive them from the pool's real budget
+            faults = FaultPlane.random(
+                config.fault_seed, budget_bytes=engine.kv.budget,
+                request_ids=request_ids, max_batch=config.max_batch)
+            engine.faults = faults
+            print(f"fault plane armed: seed {config.fault_seed}, "
+                  f"{len(faults.events)} events")
+    else:
+        engine = ServingEngine(api, params, config=config, telemetry=tele,
+                               device=api.device)
 
     if open_loop:
         res = run_open_loop(engine, workload)
@@ -153,34 +166,39 @@ def serve(arch: str, n_requests: int = 8, max_new: int = 16,
               f"{percentile(ttfts, 95)*1e3:.1f} ms, peak queue "
               f"{depth}")
     total = sum(len(c.tokens) for c in done.values())
-    print(f"iterations {engine.iterations}, dispatches "
-          f"{engine.dispatches} ({engine.dispatches/max(total, 1):.2f}"
-          f"/tok), megasteps {engine.megasteps} "
-          f"({engine.megastep_steps} fused iters, "
-          f"N={engine.megastep_n}), "
-          f"preemptions {engine.preemptions}")
-    if engine.spill_enabled:
-        print(f"host tier: {engine.spills} spills / "
-              f"{engine.restores} restores, "
-              f"{engine.prefill_tokens_saved} prefill tokens saved, "
-              f"{engine.reprefill_tokens} re-prefilled, host peak "
-              f"{engine.kv.host_peak_bytes/2**20:.2f} MiB "
-              f"(pool {engine.kv.host_budget/2**20:.2f} MiB), "
-              f"stalls {engine.stalls}")
-    if faults is not None or config.max_queue is not None \
-            or deadline_s is not None:
-        by_status: "dict[str, int]" = {}
-        for c in done.values():
-            by_status[c.status] = by_status.get(c.status, 0) + 1
-        print(f"resolution {by_status}; degraded activations "
-              f"{engine.degraded_activations} (watchdog trips "
-              f"{engine.watchdog_trips}, megastep fallbacks "
-              f"{engine.megastep_fallbacks}, retries "
-              f"{engine.retry_dispatches}, rows failed "
-              f"{engine.rows_failed}), cancellations "
-              f"{engine.cancellations}, rejected {engine.rejected}, "
-              f"budget events {engine.budget_events}")
-    engine.assert_quiescent()
+    if engine_mode == "round":
+        print(f"round engine (dense cache): dispatches "
+              f"{engine.dispatches} "
+              f"({engine.dispatches/max(total, 1):.2f}/tok)")
+    else:
+        print(f"iterations {engine.iterations}, dispatches "
+              f"{engine.dispatches} ({engine.dispatches/max(total, 1):.2f}"
+              f"/tok), megasteps {engine.megasteps} "
+              f"({engine.megastep_steps} fused iters, "
+              f"N={engine.megastep_n}), "
+              f"preemptions {engine.preemptions}")
+        if engine.spill_enabled:
+            print(f"host tier: {engine.spills} spills / "
+                  f"{engine.restores} restores, "
+                  f"{engine.prefill_tokens_saved} prefill tokens saved, "
+                  f"{engine.reprefill_tokens} re-prefilled, host peak "
+                  f"{engine.kv.host_peak_bytes/2**20:.2f} MiB "
+                  f"(pool {engine.kv.host_budget/2**20:.2f} MiB), "
+                  f"stalls {engine.stalls}")
+        if faults is not None or config.max_queue is not None \
+                or deadline_s is not None:
+            by_status: "dict[str, int]" = {}
+            for c in done.values():
+                by_status[c.status] = by_status.get(c.status, 0) + 1
+            print(f"resolution {by_status}; degraded activations "
+                  f"{engine.degraded_activations} (watchdog trips "
+                  f"{engine.watchdog_trips}, megastep fallbacks "
+                  f"{engine.megastep_fallbacks}, retries "
+                  f"{engine.retry_dispatches}, rows failed "
+                  f"{engine.rows_failed}), cancellations "
+                  f"{engine.cancellations}, rejected {engine.rejected}, "
+                  f"budget events {engine.budget_events}")
+        engine.assert_quiescent()
     if trace_path is not None:
         trace = tele.save_chrome_trace(trace_path)
         print(f"trace: {len(trace['traceEvents'])} events -> "
@@ -218,15 +236,13 @@ def main(argv=None):
                          "trace-event JSON here (open in Perfetto)")
     EngineConfig.add_cli_args(ap)
     args = ap.parse_args(argv)
-    if args.engine != "continuous":
-        ap.error(ROUND_ENGINE_SLICE)
-    if args.paged is False:
-        ap.error("--no-paged (the dense per-slot cache) arrives with the "
-                 "dense-cache slice")
     overrides = {}
     if args.max_context is None:
-        # closed-loop default: prompt + generation exactly fit
-        overrides["max_context"] = args.prompt_len + args.max_new
+        # closed-loop default: prompt + generation exactly fit; the
+        # round engine keeps its dynamic per-round bucketing
+        overrides["max_context"] = (
+            args.prompt_len + args.max_new
+            if args.engine == "continuous" else None)
     config = EngineConfig.from_cli_args(args, **overrides)
     serve(args.arch, args.requests, args.max_new,
           prompt_len=args.prompt_len, seed=args.seed,

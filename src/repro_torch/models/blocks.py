@@ -2,16 +2,18 @@
 
 Port of ``repro.models.blocks``.  A block's *kind* is ``(mixer,
 channel)``; :func:`block_pattern` and :func:`split_pattern` are copied
-as they are.  This slice ports the ``("attn", "dense")`` block; MoE and
-Mamba blocks raise until their slices.
+as they are.  The ``("attn", "dense")`` block is ported, for the
+full-sequence forward (:func:`apply_block`) and the decode step on a
+dense or a paged cache (:func:`decode_block`); MoE and Mamba blocks raise
+until their slices.
 """
 
 from __future__ import annotations
 
 from torch import nn
 
-from .attention import Attention, decode_step_attention, \
-    init_paged_kv_cache
+from .attention import (Attention, decode_step_attention, init_kv_cache,
+                        init_paged_kv_cache, self_attention)
 from .common import Norm, norm
 from .mlp import MLP, mlp
 
@@ -74,6 +76,25 @@ def init_block(gen, cfg, kind, device, dtype) -> Block:
     return Block(cfg, kind, gen, device, dtype)
 
 
+def apply_block(params: Block, cfg, x, positions=None, window=None):
+    """Full-sequence (prefill) block.  x: (B, S, d) -> (x, aux loss 0).
+
+    The JAX block also takes the MoE implementation and a mesh; MoE
+    blocks raise at init here, until the MoE slice."""
+    h = norm(params.norm1, x)
+    x = x + self_attention(params.attn, cfg, h, positions, causal=True,
+                           window=window)
+    return x + mlp(params.mlp, norm(params.norm2, x)), 0.0
+
+
+def init_block_cache(cfg, kind, batch, max_len, dtype, device, ring=False,
+                     tile=16):
+    """A dense per-row KV cache (see attention.init_kv_cache)."""
+    _check_kind(kind)
+    return init_kv_cache(cfg, batch, max_len, dtype, device, ring=ring,
+                         tile=tile)
+
+
 def init_paged_block_cache(cfg, kind, num_blocks, block_size, dtype,
                            device):
     """One physical block pool per attention layer (no batch axis: rows
@@ -86,10 +107,12 @@ def decode_block(params: Block, cfg, x, cache, cache_len, active=None,
                  block_tables=None):
     """Single-token decode block.  x: (B, 1, d).
 
-    ``active`` (B,) bool gates per-row cache writes; ``block_tables``
-    (B, blocks_per_seq) routes the paged pools.  Both, like
-    ``cache_len``, are device tensors that the decode megastep advances
-    per row without a host round trip.
+    ``cache`` is a dense or a paged KV cache (see
+    attention.decode_step_attention for the routing); ``active`` (B,)
+    bool gates per-row cache writes; ``block_tables`` (B,
+    blocks_per_seq) routes the paged pools and is ignored by dense
+    caches.  ``active`` and a vector ``cache_len`` are device tensors
+    that the decode megastep advances per row without a host round trip.
     """
     h = norm(params.norm1, x)
     y, cache = decode_step_attention(params.attn, cfg, h, cache, cache_len,

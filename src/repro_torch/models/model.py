@@ -4,14 +4,15 @@ Port of ``repro.models.model`` for the decoder family::
 
     api = build_model(cfg, device="cuda")
     params = api.init(torch.Generator(device="cuda").manual_seed(0))
-    caches = api.init_paged_caches(batch, num_blocks, block_size, dtype)
+    logits = api.prefill_fn(params, {"tokens": tokens})        # (B, V)
+    caches = api.init_caches(batch, max_len)                  # dense
+    caches = api.init_paged_caches(batch, num_blocks, block_size)
     logits, caches = api.decode_fn(params, caches, batch)
 
 ``build_model`` runs on ``cuda`` unless ``device="cpu"`` is passed, and
 raises without a card.  Weights are stored in ``cfg.dtype`` (or
-``dtype``); norm parameters stay fp32.  ``loss_fn`` and ``prefill_fn``
-arrive with the training / flash-attention slice, encoder-decoder models
-with the Whisper slice.
+``dtype``); norm parameters stay fp32.  ``loss_fn`` arrives with the
+training slice, encoder-decoder models with the Whisper slice.
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ class ModelAPI:
     loss_fn: Callable              # (params, batch) -> (loss, metrics)
     prefill_fn: Callable           # (params, batch) -> (B, V) logits
     decode_fn: Callable            # (params, caches, batch) -> (logits, caches)
+    # (batch, max_len, dtype, ring, tile) -> dense per-row caches
+    init_caches: Callable
     # (batch, num_blocks, block_size, dtype) -> physically paged caches
     init_paged_caches: Callable
 
@@ -57,8 +60,9 @@ def build_model(cfg, device=None, dtype=None) -> ModelAPI:
             "loss_fn arrives with the training slice")
 
     def prefill_fn(params, batch):
-        raise NotImplementedError(
-            "prefill_fn arrives with the flash-attention slice")
+        return transformer.prefill_lm(
+            params, cfg, torch.as_tensor(batch["tokens"], device=device),
+            batch.get("frontend_embeds"), batch.get("positions3"))
 
     def decode_fn(params, caches, batch):
         return transformer.decode_lm(
@@ -66,10 +70,16 @@ def build_model(cfg, device=None, dtype=None) -> ModelAPI:
             active=batch.get("active"),
             block_tables=batch.get("block_tables"))
 
+    def init_caches(batch, max_len, cache_dtype=None, ring=False,
+                    tile=16):
+        return transformer.init_caches(
+            cfg, batch, max_len, torch_dtype(cache_dtype or dtype), device,
+            ring, tile)
+
     def init_paged_caches(batch, num_blocks, block_size, cache_dtype=None):
         return transformer.init_paged_caches(
             cfg, batch, num_blocks, block_size,
             torch_dtype(cache_dtype or dtype), device)
 
     return ModelAPI(cfg, device, dtype, init, loss_fn, prefill_fn,
-                    decode_fn, init_paged_caches)
+                    decode_fn, init_caches, init_paged_caches)

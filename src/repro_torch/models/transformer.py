@@ -1,8 +1,12 @@
-"""Decoder-only language model: init and single-token decode.
+"""Decoder-only language model: init, full-sequence forward / prefill,
+single-token decode.
 
 Port of ``repro.models.transformer``.  The JAX package scans a stacked
 "period" of layers to keep XLA's compile time flat; here the layers are a
-flat ``nn.ModuleList`` and decode is a Python loop over them.
+flat ``nn.ModuleList`` and every pass is a Python loop over them.  The
+JAX forward also rematerialises each period for training (``remat``);
+serving takes no gradients, so the port's forward has no remat: it
+arrives with the training slice, as does the loss.
 
 Parameters (:class:`LM`):
     embed (V, d)    final_norm    [lm_head (d, V) unless tied]
@@ -11,10 +15,12 @@ Parameters (:class:`LM`):
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
-from .blocks import (block_pattern, decode_block, init_block,
-                     init_paged_block_cache, split_pattern)
+from .blocks import (apply_block, block_pattern, decode_block, init_block,
+                     init_block_cache, init_paged_block_cache,
+                     split_pattern)
 from .common import Norm, embed_init, norm, param
 from .vocab import logits_last_token
 
@@ -46,6 +52,51 @@ def init_lm(gen, cfg, device, dtype) -> LM:
     return LM(cfg, gen, device, dtype)
 
 
+def embed_tokens(params: LM, cfg, tokens, frontend_embeds=None):
+    """tokens: (B, S) int -> (B, S, d).  Frontend embeddings (vision
+    patches, audio frames) arrive with the Qwen2-VL and Whisper slices."""
+    if frontend_embeds is not None:
+        raise NotImplementedError(
+            "frontend embeddings arrive with the Qwen2-VL / Whisper slices")
+    return params.embed[tokens]
+
+
+def forward_lm(params: LM, cfg, tokens, frontend_embeds=None,
+               positions3=None, window=None):
+    """Prefill forward.  Returns (hidden (B, S, d), aux_loss).
+
+    Every attention layer runs the ``flash_attention`` kernel (its plain
+    version on CPU tensors); MoE blocks raise at init until the MoE
+    slice, so the aux loss is 0."""
+    if positions3 is not None:
+        raise NotImplementedError(
+            "3-stream (M-RoPE) positions arrive with the Qwen2-VL slice")
+    x = embed_tokens(params, cfg, tokens, frontend_embeds)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux_total = 0.0
+    for layer in params.layers:
+        x, aux = apply_block(layer, cfg, x, positions, window)
+        aux_total += aux
+    return norm(params.final_norm, x), aux_total
+
+
+def prefill_lm(params: LM, cfg, tokens, frontend_embeds=None,
+               positions3=None, window=None):
+    """Prefill: full forward returning last-token logits only (the full
+    (B, S, V) logits tensor is never materialised)."""
+    hidden, _ = forward_lm(params, cfg, tokens, frontend_embeds,
+                           positions3, window=window)
+    return logits_last_token(params, cfg, hidden)
+
+
+def init_caches(cfg, batch, max_len, dtype, device, ring=False, tile=16):
+    """One dense ``(batch, slots, K, D)`` K/V cache per layer, with its
+    ``pos`` array (see attention.init_kv_cache)."""
+    return [init_block_cache(cfg, kind, batch, max_len, dtype, device,
+                             ring, tile)
+            for kind in block_pattern(cfg)]
+
+
 def init_paged_caches(cfg, batch, num_blocks, block_size, dtype, device):
     """One physical ``(num_blocks + 1, block_size, K, D)`` K/V pool pair
     per layer, shared across slot-table rows through block tables."""
@@ -59,9 +110,11 @@ def decode_lm(params: LM, cfg, caches, tokens, cache_len, active=None,
               block_tables=None):
     """One decode step.  tokens: (B, 1) -> (logits (B, V), caches).
 
-    ``cache_len`` (B,) int32 per-row positions, ``active`` (B,) bool
-    gates cache writes, ``block_tables`` (B, blocks_per_seq) int32 routes
-    every layer's pool.  The pools are updated in place and returned.
+    ``cache_len`` is a scalar (every row at the same position) or (B,)
+    int32 per-row positions; ``active`` (B,) bool gates cache writes;
+    ``block_tables`` (B, blocks_per_seq) int32 must be passed with the
+    caches of :func:`init_paged_caches` and routes every layer's pool.
+    The caches are updated in place and returned.
     """
     x = params.embed[tokens]                           # (B, 1, d)
     for layer, cache in zip(params.layers, caches):

@@ -1,8 +1,14 @@
-"""Continuous-batching serving engine with resource-constrained admission
-— paper §3.3 as a first-class serving feature.
+"""Serving engines with resource-constrained admission — paper §3.3 as a
+first-class serving feature, at two scheduling granularities.
 
-Port of ``repro.runtime.engine``'s :class:`ContinuousEngine`
-(iteration-level scheduling): a fixed-capacity **slot table** of
+Port of ``repro.runtime.engine``.  :class:`ServingEngine` (round-based,
+the measured baseline) admits the largest-cardinality subset of waiting
+requests whose whole-lifetime peak cache memory fits the budget,
+prefills them as one batch on a fresh dense cache, and decodes the round
+to completion before admitting again.
+
+:class:`ContinuousEngine` (iteration-level scheduling) keeps a
+fixed-capacity **slot table** of
 ``max_batch`` rows runs one masked decode dispatch per iteration, so
 requests join and leave between iterations.  Chunked prefill of newly
 admitted requests interleaves with decode iterations.  KV memory is a
@@ -22,9 +28,18 @@ kernels update **in place**, where the JAX engine rebinds immutable
 arrays.  So a dispatch the engine discards (a poisoned megastep, a
 retried decode) cannot be undone by keeping the old reference; instead
 :meth:`ContinuousEngine._discard_dispatch` relies on the masking
-argument it states, which holds for the paged, attention-only models
-this slice serves.  The round-based ``ServingEngine`` and the dense
-per-slot cache (``paged=False``) arrive with the dense-cache slice.
+argument it states, which holds for the attention-only models the port
+serves, on the paged pool and on the dense per-slot cache alike.
+
+Both engines drive the same :class:`~repro_torch.runtime.stepper.Stepper`
+with per-row cache positions, so for decoder-only models they emit the
+same greedy streams on a mixed-length request set: the continuous engine
+is a pure scheduling optimisation.  On the card the decode kernels walk
+each row's positions in fixed tiles and stop at its length, so a row's
+result does not depend on the cache's width; on the CPU the plain
+versions reduce over the whole width, so exact comparisons there give
+both engines one ``max_context`` (as the JAX package's identity test
+does).
 """
 
 from __future__ import annotations
@@ -36,10 +51,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from repro_torch.core.scheduler import incremental_select
+from repro_torch.core.scheduler import greedy_select, incremental_select
 from repro_torch.device import resolve_device
 from .config import EngineConfig
-from .kv_cache import BlockKVCache
+from .kv_cache import BlockKVCache, KVCacheManager, request_peak_bytes
 from .stepper import Stepper
 from .telemetry import Telemetry
 
@@ -111,6 +126,294 @@ def _validate_request(req: Request, max_context: "int | None") -> None:
             f"max_context {max_context}")
 
 
+def _pad_to_multiple(arr: "np.ndarray", multiple: int) -> "np.ndarray":
+    cols = -(-arr.shape[1] // multiple) * multiple if arr.shape[1] else \
+        multiple
+    out = np.zeros((arr.shape[0], cols), np.int32)
+    out[:, :arr.shape[1]] = arr
+    return out
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """Device -> host copy: the engine's one sync point per dispatch."""
+    return t.cpu().numpy()
+
+
+def _engine_device(api, device) -> None:
+    """An engine runs on the card unless the caller asks for the CPU,
+    like build_model; the model must live where the engine runs."""
+    device = resolve_device(device)
+    if device.type != api.device.type:
+        raise ValueError(f"engine on {device}, model built for "
+                         f"{api.device}")
+
+
+class ServingEngine:
+    """Round-based batched prefill + decode with §3.3 greedy admission.
+
+    The measured baseline for :class:`ContinuousEngine`: whole-lifetime
+    peak-memory admission (`KVCacheManager`), one dense cache per round
+    (``api.init_caches``, freed when the round ends), and
+    round-at-a-time scheduling.  Prefill and decode run through the
+    shared :class:`Stepper`, so every row advances from its own prompt
+    length (length-correct streams) and the fixed-width masked prefill
+    chunk serves every prompt-length remainder with one batch shape.
+
+    ``config.max_context=None`` — the default when no config is given —
+    sizes each round's cache to its longest request, rounded up to a
+    multiple of 32 slots.  The dense cache reduces in tiles of
+    ``config.block_size`` tokens, the continuous engine's block size.
+    """
+
+    def __init__(self, api, params, config: "EngineConfig | None" = None,
+                 stepper: "Stepper | None" = None,
+                 telemetry: "Telemetry | None" = None, device=None):
+        _engine_device(api, device)
+        # the round engine's default is dynamic per-round bucketing
+        config = config if config is not None \
+            else EngineConfig(max_context=None)
+        self.config = config
+        self.api = api
+        self.cfg = api.cfg
+        self.params = params
+        # the paper's working-memory budget: free capacity minus margin
+        self.kv = KVCacheManager(
+            self.cfg, int(config.hbm_budget * (1.0 - config.margin)))
+        self.max_batch = config.max_batch
+        self.prefill_chunk = config.prefill_chunk
+        self.max_context = config.max_context
+        self.queue: list[Request] = []
+        self.completed: dict[int, Completion] = {}
+        self._drainable: "deque[Completion]" = deque()
+        self._submit_t: dict[int, float] = {}
+        self._t0: "float | None" = None
+        if stepper is not None and stepper.api is not api:
+            raise ValueError("shared stepper built for a different model")
+        self.stepper = stepper if stepper is not None else Stepper(api)
+        # telemetry plane: metrics live in the registry, spans record
+        # only when the caller armed tracing — recording never feeds back
+        # into scheduling
+        self.telemetry = telemetry if telemetry is not None else Telemetry()
+        self._rec = self.telemetry.rec
+        m = self.telemetry.metrics
+        self._m_dispatches = m.counter("engine.dispatches")
+        self._m_submitted = m.counter("engine.requests_submitted")
+        self._m_resolved = m.counter("engine.requests_resolved")
+        self._h_prompt = m.histogram("engine.prompt_len")
+        self._g_queue = m.gauge("engine.queue_depth")
+
+    def submit(self, req: Request) -> bool:
+        _validate_request(req, self.max_context)
+        if any(r.id == req.id for r in self.queue) \
+                or req.id in self.completed:
+            raise ValueError(f"duplicate request id {req.id}")
+        self._m_submitted.inc()
+        self._h_prompt.observe(len(req.prompt))
+        self._rec.point("submit", request_id=req.id,
+                        prompt_len=len(req.prompt),
+                        max_new=req.max_new_tokens)
+        self._submit_t[req.id] = time.perf_counter()
+        self.queue.append(req)
+        self._g_queue.set(len(self.queue))
+        return True
+
+    @property
+    def dispatch_count(self) -> int:
+        return self._m_dispatches.value
+
+    @property
+    def dispatches(self) -> int:
+        return self._m_dispatches.value
+
+    def stats(self) -> dict:
+        """Deterministic JSON-ready snapshot of every metric plus the
+        stepper's counters."""
+        snap = self.telemetry.metrics.snapshot()
+        snap["stepper"] = self.stepper.trace_stats()
+        return snap
+
+    # -- scheduling round ---------------------------------------------------
+
+    def _admit(self) -> "list[Request]":
+        """Greedy §3.3 selection over the waiting queue (whole-lifetime
+        peak-memory upper bounds — contrast incremental_select)."""
+        if not self.queue:
+            return []
+        peak = {r.id: request_peak_bytes(self.cfg, r.context_len())
+                for r in self.queue}
+        headroom = self.kv.budget - self.kv.in_use
+        chosen_ids, _ = greedy_select(peak, [r.id for r in self.queue],
+                                      headroom, self.max_batch)
+        chosen = [r for r in self.queue if r.id in chosen_ids]
+        self.queue = [r for r in self.queue if r.id not in chosen_ids]
+        return chosen
+
+    def _run_round(self, batch_reqs, t_run0: float,
+                   t_admit: "float | None" = None) -> None:
+        """One round over a fixed ``max_batch``-wide batch: rounds with
+        fewer admitted requests pad with inactive rows (n_valid = 0,
+        never active), so every dispatch has one shape and a row's
+        result does not depend on how many requests the round admitted."""
+        C = self.prefill_chunk
+        B = self.max_batch
+        n = len(batch_reqs)
+        plens = np.zeros(B, np.int32)
+        max_new = np.zeros(B, np.int32)
+        plens[:n] = [len(r.prompt) for r in batch_reqs]
+        max_new[:n] = [r.max_new_tokens for r in batch_reqs]
+        if self.max_context is not None:
+            max_ctx = self.max_context
+        else:
+            # bucket the per-round cache width so rounds with similar
+            # context lengths share one shape (32-slot steps)
+            need = max(r.context_len() for r in batch_reqs)
+            max_ctx = -(-need // 32) * 32
+        toks = np.zeros((B, int(plens.max())), np.int32)
+        for i, r in enumerate(batch_reqs):
+            toks[i, :len(r.prompt)] = r.prompt          # right padding
+        toks = _pad_to_multiple(toks, C)
+
+        caches = self.api.init_caches(B, max_ctx, self.api.dtype,
+                                      tile=self.config.block_size)
+        lens = np.zeros(B, np.int32)
+        first_tok = np.zeros(B, np.int32)
+
+        rec = self._rec
+        t0 = time.perf_counter()
+        for t in range(0, int(plens.max()), C):
+            n_valid = np.clip(plens - t, 0, C)
+            self._m_dispatches.inc()
+            t_d = rec.now()
+            caches, _, first, _ = self.stepper.prefill_chunk(
+                self.params, caches, toks[:, t:t + C], lens, n_valid)
+            done_here = (t < plens) & (plens <= t + C)
+            if done_here.any():
+                first_host = _host(first)
+                first_tok[done_here] = first_host[done_here]
+            lens += n_valid
+            rec.span("prefill_chunk", t_d, rows=int((n_valid > 0).sum()),
+                     tokens=int(n_valid.sum()))
+        prefill_s = time.perf_counter() - t0
+        t_first = time.perf_counter()
+        ttft_s = t_first - t_run0
+        ttft_admit_s = t_first - (t_admit if t_admit is not None
+                                  else t_run0)
+
+        comps = {r.id: Completion(
+            r.id, prefill_s=prefill_s, ttft_s=ttft_s,
+            ttft_admit_s=ttft_admit_s,
+            ttft_submit_s=t_first - self._submit_t.get(r.id, t_run0))
+            for r in batch_reqs}
+        for r in batch_reqs:
+            rec.point("first_token", request_id=r.id,
+                      ttft_s=round(ttft_s, 6))
+        eos = np.full(B, -1, np.int64)
+        for i, r in enumerate(batch_reqs):
+            if r.eos_id is not None:
+                eos[i] = r.eos_id
+        count = np.zeros(B, np.int32)       # pad rows stay at 0
+        for i, r in enumerate(batch_reqs):
+            if r.max_new_tokens > 0:        # 0 = prefill-only request
+                comps[r.id].tokens.append(int(first_tok[i]))
+                count[i] = 1
+                if first_tok[i] == eos[i]:  # stop after the EOS token
+                    count[i] = max_new[i]
+        last = first_tok.copy()
+
+        t0 = time.perf_counter()
+        while (count < max_new).any():
+            active = count < max_new
+            self._m_dispatches.inc()
+            t_d = rec.now()
+            # the round baseline ignores the watchdog flag: it exists to
+            # measure the continuous engine against, and its semantics
+            # must not drift with the hardening work
+            last_dev, _, caches = self.stepper.decode(
+                self.params, caches, last, lens, active)
+            last = _host(last_dev)
+            rec.span("decode", t_d, rows=int(active.sum()))
+            lens += active
+            count += active
+            for i, r in enumerate(batch_reqs):
+                if active[i]:
+                    comps[r.id].tokens.append(int(last[i]))
+                    if last[i] == eos[i]:
+                        count[i] = max_new[i]
+        decode_s = time.perf_counter() - t0
+
+        for r in batch_reqs:
+            comps[r.id].decode_s = decode_s
+            self.kv.release(r.id)
+            self._m_resolved.inc()
+            rec.point("complete", request_id=r.id, status="completed",
+                      tokens=len(comps[r.id].tokens))
+            self.completed[r.id] = comps[r.id]
+            self._drainable.append(comps[r.id])
+
+    # -- step/drain surface -------------------------------------------------
+
+    def has_work(self) -> bool:
+        """True while any submitted request is still unresolved."""
+        return bool(self.queue)
+
+    def step(self) -> None:
+        """ONE scheduling round: admit the largest-fitting subset of the
+        queue, prefill it as a batch, decode it to completion.  A no-op
+        when the queue is empty — callers drive ``submit()`` / ``step()``
+        / :meth:`drain_completions` from their own loop (the open-loop
+        harness), and :meth:`run` is a thin wrapper doing exactly that."""
+        if not self.queue:
+            return
+        if self._t0 is None:
+            self._t0 = time.perf_counter()
+        batch_reqs = self._admit()
+        if not batch_reqs:
+            # between rounds the pool is empty, so an empty round means
+            # no queued request can EVER fit — raise like the continuous
+            # engine instead of silently dropping them
+            smallest = min(
+                request_peak_bytes(self.cfg, r.context_len())
+                for r in self.queue)
+            raise MemoryError(
+                f"no queued request fits: smallest peak {smallest} "
+                f"bytes, headroom {self.kv.budget - self.kv.in_use}")
+        self._g_queue.set(len(self.queue))
+        t_admit = time.perf_counter()
+        for i, r in enumerate(batch_reqs):
+            self.kv.admit(r.id, r.context_len())
+            self._rec.point("admit", request_id=r.id, slot=i)
+        self._run_round(batch_reqs, self._t0, t_admit)
+
+    def drain_completions(self) -> "list[Completion]":
+        """Completions resolved since the last drain, in resolution
+        order — the incremental twin of :meth:`run`'s end-of-world
+        dict (which keeps accumulating regardless of draining)."""
+        out = list(self._drainable)
+        self._drainable.clear()
+        return out
+
+    def run(self, max_rounds: int = 64) -> "dict[int, Completion]":
+        """Drain the queue through the step surface: at most
+        ``max_rounds`` scheduling rounds, then every still-queued
+        request resolves as failed (the cap is a liveness backstop,
+        not a silent drop)."""
+        self._t0 = time.perf_counter()
+        rounds = 0
+        while self.queue and rounds < max_rounds:
+            rounds += 1
+            self.step()
+        for r in self.queue:
+            self._m_resolved.inc()
+            self._rec.point("complete", request_id=r.id, status="failed",
+                            reason="max_rounds")
+            comp = Completion(r.id, status="failed", reason="max_rounds")
+            self.completed[r.id] = comp
+            self._drainable.append(comp)
+        self.queue.clear()
+        self._g_queue.set(0)
+        return self.completed
+
+
 # --------------------------------------------------------------------------
 # continuous batching
 # --------------------------------------------------------------------------
@@ -145,11 +448,6 @@ class _Seq:
 
 
 FREE, PREFILL, DECODE = 0, 1, 2
-
-
-def _host(t: torch.Tensor) -> np.ndarray:
-    """Device -> host copy: the engine's one sync point per dispatch."""
-    return t.cpu().numpy()
 
 
 class ContinuousEngine:
@@ -189,8 +487,10 @@ class ContinuousEngine:
     identical prompt prefixes of concurrently live requests onto the
     same physical blocks (content-hashed full blocks, refcounted,
     immutable): the shared tokens are neither re-prefilled nor
-    re-allocated.  ``paged=False`` (the dense per-slot baseline)
-    arrives with the dense-cache slice.
+    re-allocated.  ``paged=False`` keeps dense per-slot caches
+    (``api.init_caches``, ``max_context`` slots a row, reduced in tiles
+    of ``block_size``) — the bit-identical baseline the paged path is
+    validated against; it has no host tier and no prefix sharing.
 
     **Robustness** (see ``runtime/faults.py``): every dispatch carries
     an in-dispatch NaN watchdog; a poisoned result degrades down a
@@ -220,12 +520,7 @@ class ContinuousEngine:
     def __init__(self, api, params, config: "EngineConfig | None" = None,
                  stepper: "Stepper | None" = None, faults=None,
                  telemetry: "Telemetry | None" = None, device=None):
-        # runs on the card unless the caller asks for the CPU, like
-        # build_model; the model must live where the engine runs
-        device = resolve_device(device)
-        if device.type != api.device.type:
-            raise ValueError(f"engine on {device}, model built for "
-                             f"{api.device}")
+        _engine_device(api, device)
         config = config if config is not None else EngineConfig()
         if config.max_context is None:
             raise ValueError("ContinuousEngine needs an integer "
@@ -242,10 +537,6 @@ class ContinuousEngine:
             raise ValueError("ContinuousEngine serves decoder-only "
                              "models (encoder-decoder needs an encoder "
                              "pass the slot table does not schedule)")
-        if not paged:
-            raise NotImplementedError(
-                "the dense per-slot cache (paged=False) arrives with the "
-                "dense-cache slice")
         self.api = api
         self.cfg = api.cfg
         self.params = params
@@ -294,29 +585,34 @@ class ContinuousEngine:
         # host tier, sound under the same conditions as sharing: the
         # entire per-token state must live in the KV blocks
         self.spill_enabled = paged and self.kv.host_enabled
-        # physical pool rows: every table entry holding a distinct
-        # block bounds the ids BlockKVCache can ever issue, so the
-        # pool shape depends only on (max_batch, max_context,
-        # block_size) — engines differing just in budget share one
-        # pool shape
-        self.blocks_per_seq = max(1, self.kv.blocks_for(max_context))
-        cap = max_batch * self.blocks_per_seq
-        self.num_blocks = cap
-        self.scratch_block = cap        # pool row cap = scratch
-        self.tables = np.full((max_batch, self.blocks_per_seq),
-                              self.scratch_block, np.int32)
-        self.caches = api.init_paged_caches(
-            max_batch, self.num_blocks, block_size, api.dtype)
-        # cache-tier retention may exhaust the pool's free list; cap
-        # the slab ids the kv can mint so it recycles cached rows
-        # instead of indexing past the paged pools' physical rows
-        self.kv.row_cap = self.num_blocks
-        if self.prefix_cache:
-            self.kv.rec = self._rec
-            if self.kv.host_enabled:
-                # evicted cached rows take a second chance host-side
-                self.kv.capture_hook = self._capture_blocks
-                self.kv.scatter_hook = self._scatter_blocks
+        if paged:
+            # physical pool rows: every table entry holding a distinct
+            # block bounds the ids BlockKVCache can ever issue, so the
+            # pool shape depends only on (max_batch, max_context,
+            # block_size) — engines differing just in budget share one
+            # pool shape
+            self.blocks_per_seq = max(1, self.kv.blocks_for(max_context))
+            cap = max_batch * self.blocks_per_seq
+            self.num_blocks = cap
+            self.scratch_block = cap        # pool row cap = scratch
+            self.tables = np.full((max_batch, self.blocks_per_seq),
+                                  self.scratch_block, np.int32)
+            self.caches = api.init_paged_caches(
+                max_batch, self.num_blocks, block_size, api.dtype)
+            # cache-tier retention may exhaust the pool's free list; cap
+            # the slab ids the kv can mint so it recycles cached rows
+            # instead of indexing past the paged pools' physical rows
+            self.kv.row_cap = self.num_blocks
+            if self.prefix_cache:
+                self.kv.rec = self._rec
+                if self.kv.host_enabled:
+                    # evicted cached rows take a second chance host-side
+                    self.kv.capture_hook = self._capture_blocks
+                    self.kv.scatter_hook = self._scatter_blocks
+        else:
+            self.tables = None
+            self.caches = api.init_caches(max_batch, max_context, api.dtype,
+                                          tile=block_size)
 
         self.slots: "list[_Seq | None]" = [None] * max_batch
         self.slot_len = np.zeros(max_batch, np.int32)
@@ -733,6 +1029,8 @@ class ContinuousEngine:
     def _refresh_table(self, slot: int) -> None:
         """Mirror the slot's BlockKVCache table into the np block table
         shipped with every dispatch (unallocated entries -> scratch)."""
+        if not self.paged:
+            return
         row = self.tables[slot]
         row[:] = self.scratch_block
         ids = self.kv.table_ids(slot)
@@ -1090,10 +1388,11 @@ class ContinuousEngine:
         """Forget a dispatch whose results the engine throws away.
 
         The JAX engine restores the pre-dispatch cache pytree.  Here the
-        kernels wrote the pools in place, and no checkpoint is needed: a
+        caches were written in place, and no checkpoint is needed: a
         dispatch writes only positions ``>= slot_len[b]`` of its rows'
         own reserved blocks (``check_write`` refuses shared and
-        registered blocks) or the scratch row.  Every such position lies
+        registered blocks) or the scratch row — or, on the dense cache,
+        of its rows' own slots.  Every such position lies
         past the row's committed length, so it stays masked (``t <=
         cache_len``) until the retry — or the block's next owner —
         writes it again before anything reads it.  That holds only while
@@ -1339,7 +1638,8 @@ class ContinuousEngine:
         self.slots[slot] = None
         self._slot_prompt[slot] = None
         self.slot_phase[slot] = FREE
-        self.tables[slot, :] = self.scratch_block
+        if self.paged:
+            self.tables[slot, :] = self.scratch_block
 
     def _resolve(self, seq: "_Seq", status: str,
                  reason: "str | None" = None) -> None:
@@ -1530,6 +1830,7 @@ class ContinuousEngine:
             f"non-FREE slot phases: {self.slot_phase.tolist()}"
         assert not self.waiting, \
             f"requests still waiting: {[s.req.id for s in self.waiting]}"
-        assert (self.tables == self.scratch_block).all(), \
-            "block-table rows not parked on the scratch block"
+        if self.paged:
+            assert (self.tables == self.scratch_block).all(), \
+                "block-table rows not parked on the scratch block"
         self.kv.assert_quiescent()

@@ -1,4 +1,4 @@
-"""Batched step functions of the serving engine, on the paged KV pool.
+"""Batched step functions shared by both serving engines.
 
 Port of ``repro.runtime.stepper``.  One :class:`Stepper` drives the
 model's ``decode_fn`` over a whole slot table:
@@ -23,8 +23,15 @@ dispatch is where it copies the result out.  Every step function also
 returns the NaN watchdog flag per row, and ``poison`` (B,) bool — the
 fault plane's injection mask — is an argument of the same function.
 ``dispatches`` counts calls exactly as the JAX package counts jitted
-calls.  Only the paged flavours exist in this slice: the dense cache
-(and its row reset) arrives with the dense-cache slice.
+calls.
+
+Each step function has a *dense* flavour (``block_tables=None``: the
+per-row caches of ``api.init_caches``) and a *paged* one (a ``(B,
+blocks_per_seq)`` block table routing every layer's pool of
+``api.init_paged_caches``); ``megastep_sizes`` records ``(paged, N)``
+per megastep length run.  The row reset (``reset_rows``) that clears
+per-row SSM state arrives with the Mamba2/Jamba slice: attention-only
+models never need it.
 """
 
 from __future__ import annotations
@@ -35,9 +42,6 @@ import torch
 from .sampling import (greedy_serving, logits_watchdog, megastep_advance,
                        poison_logits, select_tokens)
 from .telemetry import MetricsRegistry
-
-_DENSE = ("dense KV caches (block_tables=None) arrive with the "
-          "dense-cache slice")
 
 
 class Stepper:
@@ -75,6 +79,10 @@ class Stepper:
                  "active": active, "block_tables": tables}
         return self.api.decode_fn(params, caches, batch)
 
+    def _tables(self, block_tables):
+        return (None if block_tables is None
+                else self._device(block_tables, torch.int32))
+
     # -- decode -------------------------------------------------------------
 
     @torch.no_grad()
@@ -83,14 +91,12 @@ class Stepper:
         """toks/lens/active (B,) -> (next_tok (B,), bad (B,), caches).
         ``bad`` flags active rows whose logits came back non-finite;
         ``poison`` (B,) bool NaNs those rows' logits (fault injection)."""
-        if block_tables is None:
-            raise NotImplementedError(_DENSE)
         self._m_dispatches.inc()
         toks = self._device(toks, torch.int32)
         active = self._device(active, torch.bool)
         logits, caches = self._step(
             params, caches, toks, self._device(lens, torch.int32), active,
-            self._device(block_tables, torch.int32))
+            self._tables(block_tables))
         if poison is not None:
             logits = poison_logits(logits, self._device(poison, torch.bool))
         bad = logits_watchdog(logits, active)
@@ -106,13 +112,11 @@ class Stepper:
         Returns (caches, new lens, first token per row — meaningful only
         for rows whose prompt completed in this chunk, watchdog flag per
         row OR-ed over the chunk's steps)."""
-        if block_tables is None:
-            raise NotImplementedError(_DENSE)
         self._m_dispatches.inc()
         toks = self._device(toks, torch.int32)
         lens = self._device(lens, torch.int32)
         n_valid = self._device(n_valid, torch.int32)
-        tables = self._device(block_tables, torch.int32)
+        tables = self._tables(block_tables)
         B, C = toks.shape
         first = torch.zeros(B, dtype=torch.int32, device=self.device)
         bad = torch.zeros(B, dtype=torch.bool, device=self.device)
@@ -143,19 +147,17 @@ class Stepper:
         every position the loop can write: it never allocates.
         ``poison`` (B,) bool injects at step 0 (fault injection).
         """
-        if block_tables is None:
-            raise NotImplementedError(_DENSE)
         self._m_dispatches.inc()
         forced = self._device(forced, torch.int32)
         N = forced.shape[1]
-        self.megastep_sizes.add((True, N))
+        self.megastep_sizes.add((block_tables is not None, N))
         last = self._device(toks, torch.int32)
         lens = self._device(lens, torch.int32)
         active = self._device(active, torch.bool)
         budget = self._device(budget, torch.int32)
         n_forced = self._device(n_forced, torch.int32)
         eos_ids = self._device(eos_ids, torch.int32)
-        tables = self._device(block_tables, torch.int32)
+        tables = self._tables(block_tables)
         rows = None if poison is None else self._device(poison, torch.bool)
         bad = torch.zeros_like(active)
         toks_out, act_out = [], []

@@ -4,9 +4,10 @@
   finds no import of ``jax`` or of the JAX package ``repro``.
 * A subprocess imports every module of ``repro_torch``, and the torch
   graph zoo, with ``jax`` and ``repro`` blocked in ``sys.modules``.
-* ``build_model``, ``ContinuousEngine``, ``PlanExecutor`` and
-  ``ArenaExecutor`` run on ``cuda`` by default and raise without a card
-  unless ``device="cpu"`` is passed.
+* ``build_model``, ``ContinuousEngine`` (paged or dense),
+  ``ServingEngine``, ``PlanExecutor`` and ``ArenaExecutor`` run on
+  ``cuda`` by default and raise without a card unless ``device="cpu"``
+  is passed.
 * The kernel wrappers take their plain versions for CPU tensors only: on
   any other device they launch the kernel or raise.
 """
@@ -77,7 +78,7 @@ def test_entry_points_raise_without_a_card(no_card):
     from repro_torch.launch.serve import main, serve
     from repro_torch.models import build_model
     from repro_torch.runtime.config import EngineConfig
-    from repro_torch.runtime.engine import ContinuousEngine
+    from repro_torch.runtime.engine import ContinuousEngine, ServingEngine
 
     cfg = get_config("stablelm-3b").reduced()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -91,10 +92,22 @@ def test_entry_points_raise_without_a_card(no_card):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ContinuousEngine(api, params, config=config)
     ContinuousEngine(api, params, config=config, device="cpu")
+    dense = EngineConfig(hbm_budget=1 << 28, max_context=16, paged=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ContinuousEngine(api, params, config=dense)
+    assert ContinuousEngine(api, params, config=dense,
+                            device="cpu").caches[0]["k"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine(api, params)
+    ServingEngine(api, params, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve("stablelm-3b", n_requests=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve("stablelm-3b", n_requests=1, engine_mode="round")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--requests", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--requests", "1", "--engine", "round"])
 
 
 def test_planner_entry_points_raise_without_a_card(no_card):
@@ -118,14 +131,24 @@ def test_planner_entry_points_raise_without_a_card(no_card):
 
 
 def test_serve_cli_on_cpu(capsys):
+    """The continuous engine (paged and ``--no-paged``) and ``--engine
+    round`` serve on the CPU with the same streams; the hardening
+    options stay the continuous engine's, as in the JAX entry point."""
     from repro_torch.launch.serve import main
 
-    main(["--device", "cpu", "--requests", "3", "--max-new", "4",
-          "--max-batch", "2", "--hbm-budget", "256M"])
-    out = capsys.readouterr().out
-    assert "3/3 requests" in out and "on cpu" in out
-    with pytest.raises(SystemExit):
-        main(["--device", "cpu", "--engine", "round"])
+    args = ["--device", "cpu", "--requests", "3", "--max-new", "4",
+            "--max-batch", "2", "--hbm-budget", "256M"]
+    streams = []
+    for extra in ([], ["--no-paged"], ["--engine", "round"]):
+        main(args + extra)
+        out = capsys.readouterr().out
+        assert "3/3 requests" in out and "on cpu" in out, extra
+        assert ("round engine" in out) == ("round" in extra)
+        streams.append([line.split("->")[1] for line in out.splitlines()
+                        if line.startswith("req ")])
+    assert streams[0] == streams[1] == streams[2]
+    with pytest.raises(ValueError, match="continuous engine only"):
+        main(args + ["--engine", "round", "--fault-seed", "1"])
 
 
 def _paged_args(device):
@@ -140,6 +163,23 @@ def _paged_args(device):
     lens = torch.tensor([0, bpr * bs - 1], dtype=torch.int32, device=device)
     new = torch.ones(B, 1, K, D, device=device)
     return q, pool, tables, lens, new
+
+
+def _dense_args(device):
+    """decode_attention on the model's cache layout, flash_attention on
+    (B, H, S, D)."""
+    rng = np.random.default_rng(2)
+    B, H, K, T, D = 2, 4, 2, 12, 16
+    q = torch.tensor(rng.standard_normal((B, H, D)), dtype=torch.float32,
+                     device=device)
+    cache = torch.tensor(rng.standard_normal((B, T, K, D)),
+                         dtype=torch.float32, device=device)
+    pos = torch.arange(T, dtype=torch.int32, device=device)
+    lens = torch.tensor([3, T - 1], dtype=torch.int32, device=device)
+    qs = torch.tensor(rng.standard_normal((B, H, T, D)),
+                      dtype=torch.float32, device=device)
+    kv = cache.transpose(1, 2)
+    return (q, kv, kv, pos, lens), (qs, kv, kv)
 
 
 def _branch_args(device):
@@ -158,6 +198,12 @@ def test_wrappers_take_the_plain_path_only_on_cpu(monkeypatch):
     from repro_torch.kernels.branch_matmul import (branch_matmul_plain,
                                                    grouped_branch_matmul)
     from repro_torch.kernels.branch_matmul import launches as bm_launches
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.decode_attention import launches as da_launches
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention import launches as fa_launches
     from repro_torch.kernels.paged_attention import (
         launches, paged_append, paged_decode_attention,
         paged_decode_attention_plain)
@@ -168,11 +214,19 @@ def test_wrappers_take_the_plain_path_only_on_cpu(monkeypatch):
 
     bm = importlib.import_module(
         "repro_torch.kernels.branch_matmul.branch_matmul")
-    monkeypatch.setattr(pa, "load", no_build)
-    monkeypatch.setattr(bm, "load", no_build)
-    monkeypatch.setattr(_build, "load", no_build)
+    da = importlib.import_module(
+        "repro_torch.kernels.decode_attention.decode_attention")
+    fa = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    for module in (pa, bm, da, fa, _build):
+        monkeypatch.setattr(module, "load", no_build)
     before = dict(launches)
     bm_before = dict(bm_launches)
+    new_before = (dict(da_launches), dict(fa_launches))
+    dec, fl = _dense_args("cpu")
+    assert torch.equal(decode_attention(*dec), decode_attention_plain(*dec))
+    assert torch.equal(flash_attention(*fl), flash_attention_plain(*fl))
+    assert (da_launches, fa_launches) == new_before
     q, pool, tables, lens, new = _paged_args("cpu")
     got = paged_decode_attention(q, pool, pool, tables, lens)
     torch.testing.assert_close(
@@ -190,6 +244,11 @@ def test_wrappers_take_the_plain_path_only_on_cpu(monkeypatch):
     q, pool, tables, lens, new = _paged_args("meta")
     with pytest.raises(ValueError, match="no kernel"):
         paged_decode_attention(q, pool, pool, tables, lens)
+    dec, fl = _dense_args("meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        decode_attention(*dec)
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_attention(*fl)
     with pytest.raises(ValueError, match="no kernel"):
         paged_append(pool, pool, new, new, tables, lens, lens)
 
@@ -220,3 +279,21 @@ def test_wrappers_launch_their_kernel_on_the_card():
     assert launches["paged_append"] == before["paged_append"] + 1
     assert launches["paged_decode_attention"] == \
         before["paged_decode_attention"] + 1
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.decode_attention import launches as da_launches
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention import launches as fa_launches
+
+    dec, fl = _dense_args("cuda")
+    n_da, n_fa = (da_launches["decode_attention"],
+                  fa_launches["flash_attention"])
+    got_d, got_f = decode_attention(*dec), flash_attention(*fl)
+    torch.cuda.synchronize()
+    assert da_launches["decode_attention"] == n_da + 1
+    assert fa_launches["flash_attention"] == n_fa + 1
+    torch.testing.assert_close(got_d, decode_attention_plain(*dec),
+                               rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got_f, flash_attention_plain(*fl),
+                               rtol=2e-5, atol=2e-5)

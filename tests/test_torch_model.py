@@ -112,14 +112,18 @@ def test_paged_decode_matches_jax_model(models):
 
 
 def test_dense_and_scalar_paths_wait_for_their_slice(models):
+    """The dense and scalar paths have landed (tests/
+    test_torch_dense_serving.py); what still waits: a paged cache takes
+    no scalar cache_len (JAX's error), the loss waits for the training
+    slice, Mamba blocks for theirs."""
     _, _, tapi, tparams = models
     caches = tapi.init_paged_caches(B, B * BPR, BS)
     batch = {"tokens": torch.zeros(B, 1, dtype=torch.int32),
              "cache_len": torch.tensor(0, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="paged caches require"):
         tapi.decode_fn(tparams, caches, batch)
-    with pytest.raises(NotImplementedError):
-        tapi.prefill_fn(tparams, batch)
+    with pytest.raises(NotImplementedError, match="training"):
+        tapi.loss_fn(tparams, batch)
     with pytest.raises(NotImplementedError):
         build_model(get_config("mamba2-370m").reduced(), device="cpu") \
             .init(None)

@@ -5,7 +5,7 @@
 Phases (each raises on failure; the script exits 0 only if all pass):
 
 1. card: the GPU's name and power limit, from ``nvidia-smi``;
-2. build: the five CUDA kernels from ``src/repro_torch/csrc/`` (one
+2. build: the six CUDA kernels from ``src/repro_torch/csrc/`` (one
    ``nvcc`` each, in parallel);
 3. kernels: the paged kernels against their plain PyTorch versions on
    the card at the serving path's shapes (B=8, H=K=32, D=80, block 16,
@@ -26,7 +26,12 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    (B=2, 32 heads, D=80, S=2048, causal) in bf16 and fp32, the
    h2o-danube window case (B=1, S=6144) and a non-causal T > S case —
    times beside their bounds and one ``scaled_dot_product_attention``
-   call each;
+   call each; ``ssd_scan`` (fp32) against its plain version and the
+   sequential recurrence at rtol = atol = 2e-4 at the prefill shape
+   (b=2, H=32, S=2048, chunk 256, P=64, N=128), a long prompt (b=1,
+   S=8192) and an odd chunk with groups broadcast by stride (S = L =
+   100, G=2, strided operands), times beside the bound (no PyTorch call
+   computes the scan);
 4. serve: ``stablelm-3b`` at full width (32 layers, d_model 2560, bf16,
    random weights from ``torch.Generator`` seed 0) through
    ``ContinuousEngine`` with the paged pool, prefix sharing and megastep
@@ -44,8 +49,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    launches per ``decode_fn`` call, none of the paged kernels; then
    ``prefill_fn`` on B=2, S=2048: 32 ``flash_attention`` launches per
    call, logits within a normwise 2e-2 of the same call with the plain
-   attention patched in, and on a 128-token prompt its argmax against
-   the first token of ``Stepper.prefill_chunk`` on the dense cache;
+   attention patched in (2e-4 in an fp32 model with the same weights),
+   and on a 128-token prompt its argmax against the first token of
+   ``Stepper.prefill_chunk`` on the dense cache (and, in fp32, its
+   logits against scalar token-by-token decode at 2e-4);
 6. reference: the reduced fp32 model on the card against the same
    weights on the CPU (plain versions), a few decode steps, fp32 2e-5;
    then where one full-width decode step spends its time (host clock,
@@ -66,9 +73,34 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    elementwise differences above 2e-5 between any two summation orders
    (normwise ~1e-5; an ordering or mapping fault would give ~1);
 9. planner B, the model DAG: ``export_decoder_graph`` of stablelm-3b at
-   full width and depth (32 layers, fp32 weights from
-   ``torch.Generator`` seed 0), batch 1, seq 256, through the planner and
-   every mode; fused and whole-plan logits bit-identical to ``reference``.
+   full width, depth cut to 16 of its 32 layers (the Mamba2 phases took
+   the time; fp32 weights from ``torch.Generator`` seed 0), batch 1, seq
+   256, through the planner and every mode; fused and whole-plan logits
+   bit-identical to ``reference``;
+10. mamba2 prefill: ``mamba2-370m`` at full width (48 Mamba2 layers,
+    d_model 1024, d_state 128, bf16, random weights from
+    ``torch.Generator`` seed 0), ``prefill_fn`` on B=2, S=2048: 48
+    ``ssd_scan`` launches per call, logits against the same call with
+    the plain scan patched in — at 2e-4 in an fp32 model with the same
+    weights, and in bf16 at 4e-2 (this bf16 model moves its logits
+    more than 2e-2 between two fp32 orders of the same scan: the plain
+    version at chunk 128 against 256 is printed beside, and so are
+    deliberately perturbed scans), the cross-checks of phase 5 on a
+    256-token prompt, the scan at layer 0's own inputs against the
+    float64 recurrence, and profiles of one decode step and one prefill
+    call;
+11. mamba2 serve: the 8-request workload through ``ContinuousEngine``
+    (paged, megastep 8, sharing asked for and gated off; dense at
+    megastep 8 and 1) and ``ServingEngine``: streams bit-identical, no
+    ``ssd_scan`` launch in decode, reset dispatches counted; a request
+    served in a slot after another equals its solo run; one poisoned
+    megastep falls back and ends bit-identical to the clean run;
+12. mamba2 planner: ``export_decoder_graph`` of mamba2-370m at full width
+    and depth (fp32), batch 1, seq 256, through ``reference`` and fused
+    ``parallax``: one ``ssd_scan`` launch per layer per run, logits
+    within 2e-4 of the op-by-op oracle;
+13. CLI: ``serve("mamba2-370m")`` and ``--arch mamba2-370m --engine
+    round``.
 
 The last two lines are the ``kernels`` JSON object and the result
 object ``{"ok": true, "device": {...}}``.  Without a card, or without
@@ -77,6 +109,7 @@ the repository beside it, the script fails before printing a result.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -100,7 +133,8 @@ SPIN_CYCLES = 2_000_000            # ~1 ms: covers one wrapper's host time
 BM_SITES = {"qkv": (6, 512, 2560, 240), "out": (6, 512, 80, 2560)}
 PLANNER_GRAPH = dict(dim=2560, heads=32, seq=512)
 DAG_BATCH, DAG_SEQ = 1, 256
-RUNS_A, RUNS_B = 15, 5             # timed runs per planner mode
+DAG_LAYERS = 16                    # planner B's stablelm-3b depth (of 32)
+RUNS_A, RUNS_B = 15, 3             # timed runs per planner mode
 MODES = {                          # PlanExecutor keyword arguments
     "reference": dict(mode="reference"),
     "sequential": dict(mode="sequential"),
@@ -119,8 +153,24 @@ FA_CROSS = dict(B=2, S=448, T=1500)            # causal=False, T > S
 PREFILL_B, PREFILL_S, PREFILL_RUNS = 2, 2048, 5
 XCHECK_PROMPT = 128                # prefill_fn vs the stepper's prefill
 # prefill logits vs other paths: normwise (||a - b|| / ||b||), bf16 model
-PREFILL_TOL = 2e-2                 # kernel vs plain attention
+PREFILL_TOL = 2e-2                 # kernel vs plain version, bf16 model
+PREFILL_TOL_FP32 = 2e-4            # the same in an fp32 model
 XCHECK_TOL = 5e-2                  # prefill_fn vs token-by-token decode
+# mamba2-370m in bf16, normwise from the plain path (H100 80GB HBM3,
+# 700 W): sound scans read 3.411e-2 (the plain version at chunk 128) and
+# 3.485e-2 (the kernel); faulty ones 4.476e-2 (y rounded to bf16) and
+# 4.488e-2 (dt rounded to bf16).  The limit lies between the two.
+MAMBA_PREFILL_TOL = 4e-2
+
+# the Mamba2 phases (slice 4): mamba2-370m's SSD widths
+SSD_P, SSD_N, SSD_TOL = 64, 128, 2e-4
+SSD_CASES = (                      # label, b, S, H, G, L, strided
+    ("prefill shape", PREFILL_B, PREFILL_S, 32, 1, 256, False),
+    ("long prompt", 1, 8192, 32, 1, 256, False),
+    ("odd L = S, G=2", 2, 100, 32, 2, 100, True),
+)
+MAMBA_XCHECK = 256                 # one chunk: prefill_fn needs S % 256
+MAMBA_RUNS = 3                     # timed runs per planner mode
 
 KERNELS = {
     "paged_decode_attention": dict(
@@ -138,11 +188,19 @@ KERNELS = {
     "flash_attention": dict(
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:77"),
+    "ssd_scan": dict(
+        source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:70"),
 }
 
 
+T_START = time.perf_counter()
+
+
 def log(*args):
-    print(*args, flush=True)
+    """Print with the seconds since the script started, so a run shows
+    where its time limit goes."""
+    print(f"[{time.perf_counter() - T_START:6.1f} s]", *args, flush=True)
 
 
 def median_ms(fn, flush, iters=50):
@@ -528,7 +586,8 @@ def requests(vocab):
     return out
 
 
-def serve_full_width(api, params, megastep, sharing, paged=True):
+def serve_full_width(api, params, megastep, sharing, paged=True,
+                     faults=None):
     from repro_torch.runtime.config import EngineConfig
     from repro_torch.runtime.engine import ContinuousEngine
 
@@ -537,7 +596,7 @@ def serve_full_width(api, params, megastep, sharing, paged=True):
                                hbm_budget=4 << 30, max_batch=B,
                                megastep=megastep, paged=paged,
                                prefix_sharing=sharing, block_size=BS,
-                               max_context=MAX_CONTEXT))
+                               max_context=MAX_CONTEXT), faults=faults)
     reqs = requests(api.cfg.vocab_size)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -672,11 +731,19 @@ def normwise(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def prefill_phase(api, params, fa, device):
-    """Phase 5c: prefill_fn at B=2, S=2048 through flash_attention, held
-    to the same call with the plain version patched in, and to the
-    token-by-token path on a 128-token prompt.  Returns the launches of
-    one prefill_fn call."""
+def prefill_phase(api, params, kern, name, patch, xcheck, device,
+                  tol=PREFILL_TOL, readings=()):
+    """Phase 5c (and 10 for mamba2): prefill_fn at B=2, S=2048 through
+    the kernel ``name`` of package ``kern``, held to the same call with
+    the plain version patched in (``patch``: module, attribute, plain
+    function) — in the bf16 model at ``PREFILL_TOL`` and in an fp32
+    model with the same weights at ``PREFILL_TOL_FP32`` — and to the
+    token-by-token path on an ``xcheck``-token prompt.
+
+    ``tol`` is the bf16 limit; ``readings`` = ((label, function), ...):
+    variants of the plain version whose distance from it is printed
+    beside, to show where the limit lies.  Returns the launches of one
+    prefill_fn call."""
     import importlib
 
     from repro_torch.runtime.sampling import greedy_serving
@@ -692,10 +759,10 @@ def prefill_phase(api, params, fa, device):
         api.prefill_fn(params, batch)                      # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa.reset_launches()
+        kern.reset_launches()
         logits = api.prefill_fn(params, batch)
         torch.cuda.synchronize()
-        launched = fa.launches["flash_attention"]
+        launched = kern.launches[name]
         peak = torch.cuda.max_memory_allocated()
         walls = []
         for _ in range(PREFILL_RUNS):
@@ -707,68 +774,101 @@ def prefill_phase(api, params, fa, device):
                 or not torch.isfinite(logits).all():
             raise AssertionError("prefill_fn: malformed logits")
         if launched != cfg.num_layers:
-            raise AssertionError(f"prefill_fn: {launched} flash_attention "
+            raise AssertionError(f"prefill_fn: {launched} {name} "
                                  f"launches, expected {cfg.num_layers}")
-        mod = importlib.import_module(
-            "repro_torch.kernels.flash_attention.flash_attention")
-        kernel = mod.flash_attention
-        mod.flash_attention = mod.flash_attention_plain
-        try:
-            plain = api.prefill_fn(params, batch)
-        finally:
-            mod.flash_attention = kernel
+        mod_name, attr, plain_fn = patch
+        mod = importlib.import_module(mod_name)
+        kernel = getattr(mod, attr)
+
+        def patched(api_, params_, fn):
+            setattr(mod, attr, fn)
+            try:
+                return api_.prefill_fn(params_, batch)
+            finally:
+                setattr(mod, attr, kernel)
+
+        plain = patched(api, params, plain_fn)
+        note = "".join(
+            f"; {label} {normwise(patched(api, params, fn), plain):.3e}"
+            for label, fn in readings)
         torch.cuda.synchronize()
     rel = normwise(logits, plain)
     same_argmax = torch.equal(greedy_serving(logits), greedy_serving(plain))
-    log(f"prefill: prefill_fn B={PREFILL_B} S={PREFILL_S} at full width: "
-        f"{launched} flash_attention launches per call, "
+    log(f"prefill: {cfg.name} prefill_fn B={PREFILL_B} S={PREFILL_S} at "
+        f"full width: {launched} {name} launches per call, "
         f"{float(np.median(walls)):.3f} ms per call (median of "
         f"{PREFILL_RUNS}, {min(walls):.3f}-{max(walls):.3f}), peak device "
-        f"memory {peak / 2**30:.2f} GiB; vs the plain attention: max abs "
+        f"memory {peak / 2**30:.2f} GiB; vs the plain version: max abs "
         f"{(logits.float() - plain.float()).abs().max().item():.3e} on "
         f"|logits| <= {plain.float().abs().max().item():.2f}, normwise "
-        f"{rel:.3e} (tol {PREFILL_TOL}), argmax "
+        f"{rel:.3e} (tol {tol:.3e}), argmax "
         f"{'equal' if same_argmax else 'DIFFERS'}")
-    if not rel <= PREFILL_TOL:
-        raise AssertionError("prefill_fn off its plain-attention version")
-    # how far each bf16 path lies from an fp32 evaluation of the same
-    # weights: the kernel should add no more error than the plain version
+    if readings:
+        log(f"prefill: variants of the plain version, normwise from "
+            f"it{note}")
+    if not rel <= tol:
+        raise AssertionError(f"prefill_fn off its plain-{name} version")
+    # an fp32 model with the same weights: kernel against plain version
+    # without bf16 rounding, and how far each bf16 path lies from it (the
+    # kernel should add no more error than the plain version)
     from repro_torch.models import build_model
 
     api32 = build_model(cfg, device=device, dtype="float32")
     p32 = api32.init(None)
     p32.load_state_dict(params.state_dict())
+    prompt = tokens[:1, :xcheck]
     with torch.no_grad():
         ref32 = api32.prefill_fn(p32, batch)
+        plain32 = patched(api32, p32, plain_fn)
+        # the fp32 cross-check: prefill_fn against scalar token-by-token
+        # decode on the dense cache, raw fp32 argmax (no bf16 ties)
+        full32 = api32.prefill_fn(p32, {"tokens": prompt})
+        caches = api32.init_caches(1, xcheck, tile=BS)
+        for i in range(xcheck):
+            step32, caches = api32.decode_fn(p32, caches, {
+                "tokens": prompt[:, i:i + 1], "cache_len": i})
     torch.cuda.synchronize()
-    log(f"prefill: vs an fp32 evaluation of the same weights (fp32 "
-        f"flash_attention): kernel path normwise {normwise(logits, ref32):.3e}"
-        f", plain path {normwise(plain, ref32):.3e}")
-    del api32, p32, ref32, plain
+    rel32 = normwise(ref32, plain32)
+    log(f"prefill: fp32 model, same weights: kernel vs plain version "
+        f"normwise {rel32:.3e} (tol {PREFILL_TOL_FP32}); bf16 vs fp32 "
+        f"evaluation: kernel path normwise {normwise(logits, ref32):.3e}, "
+        f"plain path {normwise(plain, plain32):.3e}")
+    if not rel32 <= PREFILL_TOL_FP32:
+        raise AssertionError(f"fp32 prefill_fn off its plain-{name} "
+                             f"version")
+    a_full, a_step = int(full32[0].argmax()), int(step32[0].argmax())
+    rel = normwise(full32, step32)
+    diff = (full32 - step32).abs().max().item()
+    gap = (full32[0, a_full] - full32[0, a_step]).abs().item()
+    log(f"prefill: fp32 model, {xcheck}-token prompt: prefill_fn argmax "
+        f"{a_full}, scalar token-by-token argmax {a_step}; logits normwise "
+        f"{rel:.3e} (tol {PREFILL_TOL_FP32}), max abs {diff:.3e}")
+    if not rel <= PREFILL_TOL_FP32 or (a_full != a_step and not gap <= diff):
+        raise AssertionError("fp32 prefill_fn and the decode path disagree")
+    del api32, p32, ref32, plain32, plain, full32, step32, caches
     torch.cuda.empty_cache()
 
-    # the two serving paths on one 128-token prompt
-    prompt = tokens[:1, :XCHECK_PROMPT]
+    # the two serving paths on one xcheck-token prompt, in the bf16 model
     with torch.no_grad():
         full = api.prefill_fn(params, {"tokens": prompt})
         stepper = Stepper(api)
-        caches = api.init_caches(1, XCHECK_PROMPT, tile=BS)
+        caches = api.init_caches(1, xcheck, tile=BS)
         _, _, first, _ = stepper.prefill_chunk(
             params, caches, prompt.cpu().numpy(), np.zeros(1, np.int32),
-            np.full(1, XCHECK_PROMPT, np.int32))
-        caches = api.init_caches(1, XCHECK_PROMPT, tile=BS)
-        for i in range(XCHECK_PROMPT):                     # scalar path
+            np.full(1, xcheck, np.int32))
+        caches = api.init_caches(1, xcheck, tile=BS)
+        for i in range(xcheck):                            # scalar path
             step, caches = api.decode_fn(params, caches, {
                 "tokens": prompt[:, i:i + 1], "cache_len": i})
     a_full = int(greedy_serving(full)[0])
     a_step = int(first[0])
     gap = (full[0, a_full].float() - full[0, a_step].float()).abs().item()
     rel = normwise(full, step)
-    log(f"prefill: {XCHECK_PROMPT}-token prompt: prefill_fn argmax "
+    log(f"prefill: {xcheck}-token prompt: prefill_fn argmax "
         f"{a_full}, Stepper.prefill_chunk first token {a_step} (dense "
         f"cache), scalar decode argmax {int(greedy_serving(step)[0])}; "
         f"prefill_fn vs token-by-token logits: normwise {rel:.3e} (tol "
-        f"{XCHECK_TOL}), gap between the two argmaxes {gap:.4f}")
+        f"{XCHECK_TOL:.3e}), gap between the two argmaxes {gap:.4f}")
     if a_step != int(greedy_serving(step)[0]):
         raise AssertionError("vector and scalar dense decode disagree")
     if not rel <= XCHECK_TOL or (a_full != a_step and not gap <= (
@@ -777,38 +877,27 @@ def prefill_phase(api, params, fa, device):
     return launched
 
 
-def step_profile(api, params, device):
-    """Where one full-width ``decode_fn`` call (B=8, every row at
-    position 100) spends its time: host+device wall time by the host
-    clock, and the card's busy time by ``torch.profiler`` (the sum of its
-    kernels, which run in order on one stream), split by kernel family.
-    The weight bytes over the memory rate bound the step from below."""
+def device_profile(label, fn, n, bound):
+    """Where one call of ``fn`` spends its time: host+device wall time by
+    the host clock, and the card's busy time by ``torch.profiler`` (the
+    sum of its kernels, which run in order on one stream), split by
+    kernel family.  ``bound`` = (ms, what) bounds the call from below."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    caches = api.init_paged_caches(B, B * BPR, BS)
-    batch = {"tokens": torch.zeros(B, 1, dtype=torch.int32, device=device),
-             "cache_len": torch.full((B,), 100, dtype=torch.int32,
-                                     device=device),
-             "active": torch.ones(B, dtype=torch.bool, device=device),
-             "block_tables": torch.arange(B * BPR, dtype=torch.int32,
-                                          device=device).reshape(B, BPR)}
-    weight_bytes = sum(p.numel() * p.element_size()
-                       for p in params.parameters())
-    n = 5
     with torch.no_grad():
         for _ in range(3):
-            api.decode_fn(params, caches, batch)
+            fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
-            api.decode_fn(params, caches, batch)
+            fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n * 1e3
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
-                api.decode_fn(params, caches, batch)
+                fn()
             torch.cuda.synchronize()
     by_family: "dict[str, float]" = {}
     launches = 0
@@ -820,27 +909,45 @@ def step_profile(api, params, device):
             family = "paged_decode_attention"
         elif "paged_append" in name:
             family = "paged_append"
+        elif "ssd_scan" in name:
+            family = "ssd_scan"
         elif any(k in name for k in ("gemm", "gemv", "xmma", "cutlass",
                                      "nvjet", "splitk")):
             family = "matmul"
         else:
-            family = "other (elementwise, norms, rope, sampling)"
+            family = "other (elementwise, norms, rope, conv, sampling)"
         by_family[family] = (by_family.get(family, 0.0)
                              + e.time_range.elapsed_us() / 1e3 / n)
         launches += 1
     busy = sum(by_family.values())
-    bound = weight_bytes / HBM_BYTES_PER_S * 1e3
     if busy == 0.0:
-        log(f"step: full-width decode_fn (B=8, position 100): wall "
-            f"{wall:.3f} ms; device time not measured (the profiler saw "
-            f"no kernels); weight-read bound {bound:.3f} ms")
+        log(f"step: {label}: wall {wall:.3f} ms; device time not measured "
+            f"(the profiler saw no kernels); {bound[1]} bound "
+            f"{bound[0]:.3f} ms")
         return
-    log(f"step: full-width decode_fn (B=8, position 100): wall "
-        f"{wall:.3f} ms, device busy {busy:.3f} ms ({launches / n:.0f} "
-        f"kernels), idle share {1 - busy / wall:.3f}, weight-read bound "
-        f"{bound:.3f} ms")
+    log(f"step: {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+        f"({launches / n:.0f} kernels), idle share {1 - busy / wall:.3f}, "
+        f"{bound[1]} bound {bound[0]:.3f} ms")
     for family, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
         log(f"step:   {family}: {ms:.3f} ms ({ms / busy:.1%} of busy)")
+
+
+def step_profile(api, params, device):
+    """One full-width ``decode_fn`` call (B=8, every row at position 100)
+    through :func:`device_profile`; the weight bytes over the memory rate
+    bound the step from below."""
+    caches = api.init_paged_caches(B, B * BPR, BS)
+    batch = {"tokens": torch.zeros(B, 1, dtype=torch.int32, device=device),
+             "cache_len": torch.full((B,), 100, dtype=torch.int32,
+                                     device=device),
+             "active": torch.ones(B, dtype=torch.bool, device=device),
+             "block_tables": torch.arange(B * BPR, dtype=torch.int32,
+                                          device=device).reshape(B, BPR)}
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    device_profile(f"full-width {api.cfg.name} decode_fn (B=8, position "
+                   f"100)", lambda: api.decode_fn(params, caches, batch), 5,
+                   (weight_bytes / HBM_BYTES_PER_S * 1e3, "weight-read"))
 
 
 def reference_phase(device):
@@ -1080,7 +1187,8 @@ def planner_kernel_path(bm, device):
 
 
 def planner_model_dag(device):
-    """Phase 9: stablelm-3b at full width and depth through the planner."""
+    """Phase 9: stablelm-3b at full width, ``DAG_LAYERS`` deep, through
+    the planner."""
     from repro_torch.configs import get_config
     from repro_torch.core import (ArenaExecutor, ParallaxConfig,
                                   clear_compile_cache, compile_plan,
@@ -1089,7 +1197,8 @@ def planner_model_dag(device):
     from repro_torch.models import build_model
     from repro_torch.models.dag_export import export_decoder_graph
 
-    cfg = get_config("stablelm-3b")
+    cfg = dataclasses.replace(get_config("stablelm-3b"),
+                              num_layers=DAG_LAYERS)
     t0 = time.perf_counter()
     api = build_model(cfg, device=device, dtype="float32")
     lm = api.init(torch.Generator(device=device).manual_seed(0))
@@ -1102,8 +1211,8 @@ def planner_model_dag(device):
     t0 = time.perf_counter()
     stats = compile_schedule(plan, donate=True).stats
     lower_s = time.perf_counter() - t0
-    log(f"planner B: {cfg.name} full width and depth ({cfg.num_layers} "
-        f"layers, d_model {cfg.d_model}, fp32), batch {DAG_BATCH}, seq "
+    log(f"planner B: {cfg.name} full width, {cfg.num_layers} of 32 "
+        f"layers (d_model {cfg.d_model}, fp32), batch {DAG_BATCH}, seq "
         f"{DAG_SEQ}: {g.num_nodes()} nodes after build+export in "
         f"{export_s:.1f} s; planned in {plan_s:.2f} s (budget "
         f"{budget / 2**30:.2f} GiB) into {len(plan.branches)} branches, "
@@ -1139,6 +1248,400 @@ def planner_model_dag(device):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# phases 3d and 10-13: mamba2-370m on ssd_scan
+# --------------------------------------------------------------------------
+
+def ssd_inputs(rng, b, S, H, G, device, strided):
+    """The JAX suite's distributions at mamba2-370m's P and N.  Strided:
+    x, B and C sliced out of one projection-like buffer and dt out of a
+    wider one, as the DAG's scan node hands them to the kernel."""
+    P, N = SSD_P, SSD_N
+    x = rng.standard_normal((b, S, H * P), dtype=np.float32)
+    Bm = rng.standard_normal((b, S, G * N), dtype=np.float32)
+    Cm = rng.standard_normal((b, S, G * N), dtype=np.float32)
+    dt = rng.uniform(0.01, 0.2, (b, S, 2 * H)).astype(np.float32)
+    A = -rng.uniform(0.5, 2.0, H).astype(np.float32)
+    if strided:
+        buf = torch.tensor(np.concatenate([x, Bm, Cm], -1), device=device)
+        x, Bm, Cm = torch.split(buf, [H * P, G * N, G * N], dim=-1)
+        dt = torch.tensor(dt, device=device)[..., :H]
+    else:
+        x, Bm, Cm = (torch.tensor(t, device=device) for t in (x, Bm, Cm))
+        dt = torch.tensor(dt[..., :H].copy(), device=device)
+    return (x.reshape(b, S, H, P), dt, torch.tensor(A, device=device),
+            Bm.reshape(b, S, G, N), Cm.reshape(b, S, G, N))
+
+
+def ssd_bound(b, S, H, G):
+    """The least work that y from a zero state needs.  Operations: the
+    recurrence's (``core.flops.ssd_scan_flops``), one multiply-add a
+    (token, head, p, n) folding the token into the state and one reading
+    y out of it, the decay kept as a per-token scalar.  The chunked
+    algorithm (:func:`ssd_chunked_flops`) computes the same y with more at
+    every chunk length.  Bytes: x and y, B and C (per group), dt and A,
+    each once."""
+    from repro_torch.core.flops import ssd_scan_flops
+
+    flops = ssd_scan_flops(b, S, H, SSD_P, SSD_N)
+    nbytes = 4 * (2 * b * S * H * SSD_P + 2 * b * S * G * SSD_N
+                  + b * S * H + H)
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def ssd_chunked_flops(b, S, H, L):
+    """The chunked algorithm's own count on these inputs, the kernel's:
+    per (batch, head, chunk) C.B^T over the causal triangle 2 L(L+1)/2 N
+    and its product with x.dt 2 L(L+1)/2 P; per chunk boundary the state
+    folded in and read out, 2 L P N each (no read of the zero start
+    state, no fold of the last chunk, whose state is discarded)."""
+    P, N = SSD_P, SSD_N
+    tri = L * (L + 1) // 2
+    nc = S // L
+    return b * H * (nc * 2 * tri * (N + P) + (nc - 1) * 4 * L * P * N)
+
+
+def ssd_phase(ss, device):
+    """ssd_scan against its plain version and the sequential recurrence in
+    three cases; returns (max abs err, timing at the prefill shape)."""
+    rng = np.random.default_rng(4)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    worst, timing = 0.0, None
+    for label, b, S, H, G, L, strided in SSD_CASES:
+        args = ssd_inputs(rng, b, S, H, G, device, strided)
+        got = ss.ssd_scan(*args, L)
+        again = ss.ssd_scan(*args, L)
+        for what, want in (("plain", ss.ssd_scan_plain(*args, L)),
+                           ("sequential", ss.ssd_scan_ref(*args)[0])):
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            ok = torch.allclose(got, want, rtol=SSD_TOL, atol=SSD_TOL)
+            log(f"ssd_scan {label} b={b} S={S} H={H} G={G} L={L} P={SSD_P} "
+                f"N={SSD_N}{' strided' if strided else ''}: vs {what} max "
+                f"abs err {e:.3e} on |y| <= {want.abs().max().item():.2f} "
+                f"(rtol=atol={SSD_TOL}: {'holds' if ok else 'FAILS'})")
+            if not ok:
+                raise AssertionError(f"ssd_scan disagrees with its {what} "
+                                     f"version ({label})")
+            worst = max(worst, e)
+        if not torch.equal(got, again):
+            raise AssertionError("ssd_scan reruns differ")
+        t = dict(ms=median_ms(lambda: ss.ssd_scan(*args, L), flush),
+                 plain_ms=median_ms(lambda: ss.ssd_scan_plain(*args, L),
+                                    flush),
+                 bound=ssd_bound(b, S, H, G), library_ms=None)
+        log(f"ssd_scan {label}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms "
+            f"({t['bound'][1]}); reruns bit-identical")
+        if timing is None:
+            timing = t
+            chunked = ssd_chunked_flops(b, S, H, L)
+            log(f"ssd_scan {label}: the bound's operations are the "
+                f"recurrence's; the chunked algorithm's own count "
+                f"{chunked / 1e9:.3f} GFLOP would take "
+                f"{chunked / PEAK_FLOPS[torch.float32] * 1e3:.5f} ms at "
+                f"the fp32 peak")
+        del args, got, again
+    del flush
+    torch.cuda.empty_cache()
+    return worst, timing
+
+
+def scan_precision(api, params, ss, device):
+    """The scan at the model's own inputs: layer 0's operands from one
+    bf16 ``prefill_fn`` call, through the kernel and the plain version,
+    each against the sequential recurrence in float64."""
+    import repro_torch.models.ssm as ssm
+
+    cfg = api.cfg
+    tokens = torch.tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (PREFILL_B, PREFILL_S)), dtype=torch.int32,
+        device=device)
+    kernel, seen = ssm.ssd_scan, []
+
+    def keep(*args, **kwargs):
+        if not seen:
+            seen.append(tuple(t.clone() for t in args[:5]))
+        return kernel(*args, **kwargs)
+
+    ssm.ssd_scan = keep
+    try:
+        with torch.no_grad():
+            api.prefill_fn(params, {"tokens": tokens})
+    finally:
+        ssm.ssd_scan = kernel
+    x, dt, A, Bm, Cm = seen[0]
+    L = cfg.ssm.chunk
+    cs = torch.cumsum((dt * A).reshape(PREFILL_B, -1, L, dt.shape[-1]), 2)
+    exact = ss.ssd_scan_ref(*(t.double() for t in seen[0]))[0]
+    errs = {name: normwise(fn(x, dt, A, Bm, Cm, L).double(), exact)
+            for name, fn in (("kernel", ss.ssd_scan),
+                             ("plain", ss.ssd_scan_plain))}
+    log(f"prefill: layer 0's scan at the model's inputs (dt <= "
+        f"{dt.max().item():.2f}, A >= {A.min().item():.1f}, chunk-end "
+        f"|cumsum| <= {cs[:, :, -1].abs().max().item():.0f}): normwise "
+        f"from the float64 recurrence, kernel {errs['kernel']:.3e}, plain "
+        f"{errs['plain']:.3e}")
+    if not errs["kernel"] <= SSD_TOL:
+        raise AssertionError("ssd_scan off the recurrence at the model's "
+                             "inputs")
+
+
+def reuse_requests(vocab):
+    """One slot, two tenants: a 40-token prompt, then a 2-token one (under
+    the conv window: a stale window would reach its stream)."""
+    from repro_torch.runtime.engine import Request
+
+    rng = np.random.default_rng(5)
+    return [Request(i, rng.integers(0, vocab, n).astype(np.int32),
+                    max_new_tokens=16) for i, n in enumerate((40, 2))]
+
+
+def serve_one_slot(api, params, reqs):
+    from repro_torch.runtime.config import EngineConfig
+    from repro_torch.runtime.engine import ContinuousEngine
+
+    eng = ContinuousEngine(api, params, device=api.device,
+                           config=EngineConfig(
+                               hbm_budget=4 << 30, max_batch=1, megastep=8,
+                               block_size=BS, max_context=MAX_CONTEXT))
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run()
+    eng.assert_quiescent()
+    if not all(c.ok for c in done.values()):
+        raise AssertionError("one-slot run: a request failed")
+    return {k: c.tokens for k, c in done.items()}, eng
+
+
+def mamba_serve_phase(api, params, calls, ss):
+    """Phase 11: the 8-request workload through the paged engine at
+    megastep 8 (sharing asked for, and gated off by the per-row state),
+    the dense engine at 8 and 1 and the round engine; streams identical,
+    no ssd_scan launch (decode is the recurrence); then slot reuse and
+    one poisoned megastep."""
+    from repro_torch.runtime.faults import FaultEvent, FaultPlane
+    from repro_torch.runtime.stepper import Stepper
+
+    resets = [0]
+    reset_rows = Stepper.reset_rows
+
+    def counted_reset(self, caches, fresh):
+        resets[0] += 1
+        return reset_rows(self, caches, fresh)
+
+    runs = (("continuous paged, megastep 8", dict(megastep=8)),
+            ("continuous dense, megastep 8", dict(megastep=8, paged=False)),
+            ("continuous dense, megastep 1", dict(megastep=1, paged=False)),
+            ("round engine", None))
+    streams_of = {}
+    Stepper.reset_rows = counted_reset
+    try:
+        for label, knobs in runs:
+            calls[0] = resets[0] = 0
+            ss.reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if knobs is None:
+                streams, eng, wall = serve_round(api, params)
+            else:
+                streams, eng, wall = serve_full_width(api, params,
+                                                      sharing=True, **knobs)
+                if eng.prefix_sharing or eng.spill_enabled:
+                    raise AssertionError("sharing or spill armed for a "
+                                         "model with per-row state")
+            n_tok = sum(len(t) for t in streams.values())
+            log(f"mamba serve: {label}: 8/8 requests, {n_tok} tokens in "
+                f"{wall:.3f} s ({n_tok / wall:.1f} tok/s), {eng.dispatches} "
+                f"dispatches ({eng.dispatches / n_tok:.4f} per token), "
+                f"{resets[0]} reset dispatches, {calls[0]} decode_fn calls, "
+                f"ssd_scan launches {ss.launches['ssd_scan']}, peak device "
+                f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            if ss.launches["ssd_scan"] or calls[0] == 0:
+                raise AssertionError(f"{label}: ssd_scan launched in decode "
+                                     f"or decode_fn never ran")
+            if knobs is not None and resets[0] == 0:
+                raise AssertionError(f"{label}: no reset dispatch")
+            streams_of[label] = streams
+    finally:
+        Stepper.reset_rows = reset_rows
+    base = streams_of[runs[0][0]]
+    for label, streams in streams_of.items():
+        same = streams == base
+        log(f"mamba serve: {label}: streams "
+            f"{'bit-identical to' if same else 'DIFFER from'} the paged run")
+        if not same:
+            raise AssertionError(f"{label}: streams differ")
+    first, second = reuse_requests(api.cfg.vocab_size)
+    solo, _ = serve_one_slot(api, params, [second])
+    both, eng = serve_one_slot(api, params, [first, second])
+    same = both[1] == solo[1]
+    log(f"mamba serve: one slot, request 1 after request 0: stream "
+        f"{'equal to' if same else 'DIFFERS from'} its solo run "
+        f"({eng.dispatches} dispatches)")
+    if not same:
+        raise AssertionError("slot reuse leaked state")
+    plane = FaultPlane([FaultEvent(3, "poison", rows=(0, 1, 2))])
+    streams, eng, _ = serve_full_width(api, params, 8, True, faults=plane)
+    same = streams == base
+    log(f"mamba serve: poisoned megastep at iteration 3: watchdog trips "
+        f"{eng.watchdog_trips}, megastep fallbacks {eng.megastep_fallbacks}, "
+        f"rows failed {eng.rows_failed}; streams "
+        f"{'bit-identical to' if same else 'DIFFER from'} the clean run")
+    if not (same and eng.megastep_fallbacks == 1 and eng.rows_failed == 0):
+        raise AssertionError("the poisoned megastep did not fall back "
+                             "bit-identically")
+
+
+def mamba_planner_phase(ss, device):
+    """Phase 12: the mamba2-370m DAG at full width and depth (fp32), batch
+    1, seq 256, through the planner: reference and fused parallax against
+    the op-by-op oracle, one ssd_scan launch per layer per run."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ParallaxConfig, clear_compile_cache,
+                                  compile_plan, compile_schedule)
+    from repro_torch.core.executor import to_device
+    from repro_torch.models import build_model
+    from repro_torch.models.dag_export import export_decoder_graph
+
+    cfg = get_config("mamba2-370m")
+    t0 = time.perf_counter()
+    lm = build_model(cfg, device=device, dtype="float32").init(
+        torch.Generator(device=device).manual_seed(0))
+    g, make = export_decoder_graph(cfg, lm, DAG_BATCH, DAG_SEQ)
+    export_s = time.perf_counter() - t0
+    scans = [n for n in g.nodes.values() if n.name.endswith(".ssd_scan")]
+    if len(scans) != cfg.num_layers or any(n.supported for n in scans):
+        raise AssertionError("the DAG lacks its unsupported scan nodes")
+    budget = torch.cuda.mem_get_info(device)[0]
+    plan = compile_plan(g, ParallaxConfig(budget=budget))
+    stats = compile_schedule(plan, donate=True).stats
+    env = to_device(make(np.random.default_rng(0)), device)
+    ss.reset_launches()
+    oracle = g.execute(env)[g.outputs[0]]
+    torch.cuda.synchronize()
+    if ss.launches["ssd_scan"] != cfg.num_layers:
+        raise AssertionError("the oracle did not run the kernel per layer")
+    log(f"mamba planner: {cfg.name} full width and depth ({cfg.num_layers} "
+        f"layers, fp32), batch {DAG_BATCH}, seq {DAG_SEQ} (one chunk of "
+        f"{cfg.ssm.chunk}): {g.num_nodes()} nodes, {len(scans)} unsupported "
+        f"scan nodes, built+exported in {export_s:.1f} s; "
+        f"{len(plan.branches)} branches, {len(plan.layers)} layers, {stats}")
+    if oracle.shape != (DAG_BATCH, DAG_SEQ, cfg.vocab_size) \
+            or not torch.isfinite(oracle).all():
+        raise AssertionError("malformed logits")
+    modes = {"reference": dict(mode="reference"), "fused": dict()}
+    ss.reset_launches()
+    res = run_modes(plan, env, device, modes, MAMBA_RUNS)
+    runs = len(modes) * (1 + MAMBA_RUNS)
+    launched = ss.launches["ssd_scan"]
+    log(f"mamba planner: {launched} ssd_scan launches in {runs} runs "
+        f"({launched / runs:.0f} per run)")
+    if launched != cfg.num_layers * runs:
+        raise AssertionError("not one ssd_scan launch per layer per run")
+    for mode, (o, disp, syncs, ms, peak) in res.items():
+        same = torch.equal(o, oracle)
+        e = (o - oracle).abs().max().item()
+        log(f"mamba planner: {mode:9s} {disp:4d} dispatches, {syncs:3d} "
+            f"syncs, {ms[0]:8.3f} ms/run ({ms[1]:.3f}-{ms[2]:.3f}), peak "
+            f"+{peak:.2f} GiB; vs the oracle: max abs {e:.3e}, "
+            f"{'bit-identical' if same else 'not bit-identical'}")
+        if not torch.allclose(o, oracle, rtol=SSD_TOL, atol=SSD_TOL):
+            raise AssertionError(f"{mode} off the oracle")
+    del lm, g, make, plan, env, res, oracle
+    clear_compile_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mamba_phases(ss, calls_wrap, device):
+    """Phases 10-13 on mamba2-370m at full width: prefill_fn on ssd_scan,
+    the serving engines, the planner DAG, the CLI.  Returns the launches
+    of one prefill_fn call (the kernel's main path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    from repro_torch.models import build_model
+
+    cfg = get_config("mamba2-370m")
+    t0 = time.perf_counter()
+    api = build_model(cfg, device=device)
+    params = api.init(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"model: {cfg.name} full width, {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, d_state {cfg.ssm.d_state}, {n_params / 1e6:.1f} M "
+        f"params in {api.dtype}, init {time.perf_counter() - t0:.1f} s")
+    def plain_half_chunk(x, dt, A, B, C, chunk):
+        return ssd_scan_plain(x, dt, A, B, C, chunk // 2)
+
+    def plain_y_bf16(x, dt, A, B, C, chunk):
+        return ssd_scan_plain(x, dt, A, B, C, chunk).bfloat16().float()
+
+    def plain_dt_bf16(x, dt, A, B, C, chunk):   # x, B, C are bf16 values
+        return ssd_scan_plain(x, dt.bfloat16().float(), A, B, C, chunk)
+
+    launched = prefill_phase(
+        api, params, ss, "ssd_scan",
+        ("repro_torch.models.ssm", "ssd_scan", ssd_scan_plain),
+        MAMBA_XCHECK, device, tol=MAMBA_PREFILL_TOL, readings=(
+            (f"at chunk {cfg.ssm.chunk // 2}", plain_half_chunk),
+            ("faulty: with y rounded to bf16", plain_y_bf16),
+            ("faulty: on dt rounded to bf16", plain_dt_bf16)))
+    scan_precision(api, params, ss, device)
+    step_profile(api, params, device)
+    tokens = torch.tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (PREFILL_B, PREFILL_S)), dtype=torch.int32,
+        device=device)
+    # the bf16 projections at the tensor-core peak plus 48 scans at their
+    # bound: in_proj and out_proj over every token, the tied head over the
+    # last token only (the embedding is a gather), over 989 TFLOP/s; and
+    # ssd_bound per layer
+    proj = sum(p.numel() for n, p in params.named_parameters()
+               if n.endswith(("in_proj", "out_proj")))
+    matmul_ms = (2 * (proj * PREFILL_B * PREFILL_S
+                      + params.embed.numel() * PREFILL_B)
+                 / PEAK_FLOPS[torch.bfloat16] * 1e3)
+    scan_ms = cfg.num_layers * ssd_bound(PREFILL_B, PREFILL_S, 32, 1)[0]
+    device_profile(f"{cfg.name} prefill_fn (B={PREFILL_B}, S={PREFILL_S})",
+                   lambda: api.prefill_fn(params, {"tokens": tokens}), 2,
+                   (matmul_ms + scan_ms, f"projection ({matmul_ms:.3f} ms) "
+                    f"+ scan ({scan_ms:.3f} ms)"))
+    calls = calls_wrap(api)
+    mamba_serve_phase(api, params, calls, ss)
+    del api, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    mamba_planner_phase(ss, device)
+
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.serve import serve
+    done = serve("mamba2-370m", engine_mode="continuous")
+    if not all(c.ok for c in done.values()):
+        raise AssertionError("CLI serve did not complete every request")
+    log(f"cli: serve('mamba2-370m', engine_mode='continuous') completed "
+        f"{len(done)} requests")
+    argv = ["--arch", "mamba2-370m", "--engine", "round", "--requests", "4",
+            "--max-new", "8"]
+    log(f"cli: python -m repro_torch.launch.serve {' '.join(argv)}")
+    serve_main(argv)
+    return launched
+
+
+def count_calls(api):
+    """Wrap ``api.decode_fn`` with a call counter; returns the counter."""
+    calls = [0]
+    decode_fn = api.decode_fn
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return decode_fn(*args, **kwargs)
+
+    api.decode_fn = counted
+    return calls
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1152,6 +1655,7 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.models import build_model
 
     deterministic()
@@ -1169,6 +1673,7 @@ def main() -> int:
     e2, t2 = attention_phase(pa, da, fa, device)
     err.update(e2)
     timing.update(t2)
+    err["ssd_scan"], timing["ssd_scan"] = ssd_phase(ss, device)
 
     # phase 4: the main path at full width
     cfg = get_config("stablelm-3b")
@@ -1180,14 +1685,7 @@ def main() -> int:
     log(f"model: {cfg.name} full width, {cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, {n_params / 1e9:.3f} B params in {api.dtype}, "
         f"init {time.perf_counter() - t0:.1f} s")
-    calls = [0]
-    decode_fn = api.decode_fn
-
-    def counted(*args, **kwargs):
-        calls[0] += 1
-        return decode_fn(*args, **kwargs)
-
-    api.decode_fn = counted
+    calls = count_calls(api)
     torch.cuda.reset_peak_memory_stats()
     pa.reset_launches()
     streams, eng, wall = serve_full_width(api, params, 8, True)
@@ -1221,8 +1719,11 @@ def main() -> int:
     del eng, e2
     main_launches["decode_attention"] = dense_serve_phase(
         api, params, calls, streams, pa, da)
-    main_launches["flash_attention"] = prefill_phase(api, params, fa,
-                                                     device)
+    main_launches["flash_attention"] = prefill_phase(
+        api, params, fa, "flash_attention",
+        ("repro_torch.kernels.flash_attention.flash_attention",
+         "flash_attention", fa.flash_attention_plain), XCHECK_PROMPT,
+        device)
     step_profile(api, params, device)
     del api, params
     gc.collect()
@@ -1246,6 +1747,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     main_launches["branch_matmul"] = planner_kernel_path(bm, device)
     planner_model_dag(device)
+    main_launches["ssd_scan"] = mamba_phases(ss, count_calls, device)
 
     rows = []
     for name, meta in KERNELS.items():

@@ -14,8 +14,10 @@ elementwise/norm nodes, and RoPE marked unsupported -> CPU fallback.
 Node fns compute in fp32 on the LM's device: an fp32 LM's weights are
 closed over as they lie (per-group slices are views, so nothing is
 copied); any other dtype is converted to fp32 once.  As in the JAX
-exporter, the QKV biases of the Qwen2 family are not exported.  MoE and
-Mamba blocks and the Whisper encoder arrive with their slices.
+exporter, the QKV biases of the Qwen2 family are not exported.  A Mamba2
+mixer is a 4-node chain whose SSD scan node is marked unsupported (the
+paper's "unsupported kernel" fallback class) and runs the ``ssd_scan``
+kernel.  MoE blocks and the Whisper encoder arrive with their slices.
 """
 
 from __future__ import annotations
@@ -25,9 +27,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import GraphBuilder, TensorSpec, matmul_flops
-from repro_torch.core.flops import attention_flops, elementwise_flops
+from repro_torch.core.flops import (attention_flops, elementwise_flops,
+                                    ssd_scan_flops)
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 from .common import apply_rope, layer_norm, rms_norm
+from .ssm import _causal_conv, _dims, _gated_norm, _split_proj, _ssm_inputs
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -121,7 +126,7 @@ def _export_block(b, cfg, bp, x, kind, layer_i, B, S, positions, fc=None):
         y = _export_attention(b, cfg, bp.attn, h_in, layer_i, B, S,
                               positions, fc)
     else:
-        y = _export_mamba(b, cfg, None, h_in, layer_i, B, S, fc)
+        y = _export_mamba(b, cfg, bp.mamba, h_in, layer_i, B, S, fc)
 
     x = b.op(f"L{layer_i}.residual1", "elementwise", [x, y],
              [TensorSpec((B, S, d))], flops=elementwise_flops(B * S * dF),
@@ -260,9 +265,58 @@ def _export_moe(b, cfg, mp, h, layer_i, B, S, fc=None):
 
 
 def _export_mamba(b, cfg, mp, h, layer_i, B, S, fc=None):
-    raise NotImplementedError(
-        "Mamba2 mixers (SSD scan fallback) arrive with the Mamba2/Jamba "
-        "slice")
+    """Mamba2 mixer as a 4-node sequential chain: in_proj (matmul) ->
+    causal conv -> SSD scan -> out_proj (matmul).  The scan is a
+    control-flow (dynamic recurrence) op marked ``supported=False`` —
+    the paper's 'unsupported kernel' class, which the config's notes
+    name as the Parallax delegate model.  Its fn runs the SSD through the
+    ``ssd_scan`` kernel wrapper with JAX's chunk rule (the config's chunk
+    when it divides S, else one chunk of S).  The port has no hetero
+    runtime yet, so this fallback node runs where the executor runs (on
+    the card); its placement on the host comes with the hetero slice."""
+    fc = fc or cfg
+    d = cfg.d_model
+    s = cfg.ssm
+    d_inner, _, _ = _dims(cfg)
+    d_innerF, nheadsF, conv_dimF = _dims(fc)
+    proj_w, out_w = _f32(mp.in_proj), _f32(mp.out_proj)
+    conv_w, conv_b = _f32(mp.conv_w), _f32(mp.conv_b)
+    F_ = proj_w.shape[1]
+
+    FF = 2 * d_innerF + 2 * fc.ssm.n_groups * fc.ssm.d_state + nheadsF
+    zx = b.op(f"L{layer_i}.in_proj", "matmul", [h],
+              [TensorSpec((B, S, F_))],
+              flops=matmul_flops(S, FF, fc.d_model, B),
+              fn=lambda x, w=proj_w: x @ w)
+    cv = b.op(f"L{layer_i}.conv", "conv", [zx],
+              [TensorSpec((B, S, F_))],
+              flops=B * S * conv_dimF * fc.ssm.conv_width * 2,
+              fn=lambda zxbcdt: _conv_part(cfg, zxbcdt, conv_w, conv_b))
+
+    def scan_fn(zx_conv):
+        # the fp32 tail of mamba_block: A_log, D, dt_bias and norm_scale
+        # are fp32 in every Mamba module
+        z, xBC, dt = _split_proj(cfg, zx_conv)
+        xs, Bm, Cm, dtv, A = _ssm_inputs(mp, cfg, xBC, dt)
+        chunk = s.chunk if S % s.chunk == 0 else S
+        y = ssd_scan(xs, dtv, A, Bm, Cm, chunk=chunk)
+        return _gated_norm(mp, y, xs, z, torch.float32)
+
+    sc = b.op(f"L{layer_i}.ssd_scan", "elementwise", [cv],
+              [TensorSpec((B, S, d_inner))],
+              flops=ssd_scan_flops(B, S, nheadsF, fc.ssm.head_dim,
+                                   fc.ssm.d_state),
+              supported=False, fn=scan_fn)
+    return b.op(f"L{layer_i}.out_proj", "matmul", [sc],
+                [TensorSpec((B, S, d))],
+                flops=matmul_flops(S, fc.d_model, d_innerF, B),
+                fn=lambda y, w=out_w: y @ w)
+
+
+def _conv_part(cfg, zxbcdt, conv_w, conv_b):
+    z, xBC, dt = _split_proj(cfg, zxbcdt)
+    xBC = _causal_conv(xBC, conv_w, conv_b)
+    return torch.cat([z, xBC, dt], dim=-1)
 
 
 def export_graph(cfg, params, batch: int, seq: int, flops_cfg=None):

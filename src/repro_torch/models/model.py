@@ -10,9 +10,15 @@ Port of ``repro.models.model`` for the decoder family::
     logits, caches = api.decode_fn(params, caches, batch)
 
 ``build_model`` runs on ``cuda`` unless ``device="cpu"`` is passed, and
-raises without a card.  Weights are stored in ``cfg.dtype`` (or
-``dtype``); norm parameters stay fp32.  ``loss_fn`` arrives with the
-training slice, encoder-decoder models with the Whisper slice.
+raises without a card.  It serves the decoder family: ``arch_type``
+``dense`` and ``ssm`` (mamba2: Mamba2 mixers with no channel mix, whose
+caches are per-row SSM state and conv windows, on the dense and the
+paged path alike; ``prefill_fn`` needs S to be a multiple of
+``cfg.ssm.chunk``), and hybrids of the two mixers.  Weights are stored
+in ``cfg.dtype`` (or ``dtype``); norm parameters and the SSM's
+``A_log``, ``D`` and ``dt_bias`` stay fp32.  ``loss_fn`` arrives with
+the training slice, MoE blocks with the MoE slice, encoder-decoder
+models with the Whisper slice.
 """
 
 from __future__ import annotations

@@ -65,9 +65,10 @@ def forward_lm(params: LM, cfg, tokens, frontend_embeds=None,
                positions3=None, window=None):
     """Prefill forward.  Returns (hidden (B, S, d), aux_loss).
 
-    Every attention layer runs the ``flash_attention`` kernel (its plain
-    version on CPU tensors); MoE blocks raise at init until the MoE
-    slice, so the aux loss is 0."""
+    Every attention layer runs the ``flash_attention`` kernel and every
+    Mamba layer the ``ssd_scan`` kernel (their plain versions on CPU
+    tensors; a Mamba layer needs S to be a multiple of its chunk); MoE
+    blocks raise at init until the MoE slice, so the aux loss is 0."""
     if positions3 is not None:
         raise NotImplementedError(
             "3-stream (M-RoPE) positions arrive with the Qwen2-VL slice")
@@ -90,19 +91,20 @@ def prefill_lm(params: LM, cfg, tokens, frontend_embeds=None,
 
 
 def init_caches(cfg, batch, max_len, dtype, device, ring=False, tile=16):
-    """One dense ``(batch, slots, K, D)`` K/V cache per layer, with its
-    ``pos`` array (see attention.init_kv_cache)."""
+    """Per layer: a dense ``(batch, slots, K, D)`` K/V cache with its
+    ``pos`` array (see attention.init_kv_cache), or a Mamba layer's
+    per-row SSM state and conv window (see ssm.init_mamba_cache)."""
     return [init_block_cache(cfg, kind, batch, max_len, dtype, device,
                              ring, tile)
             for kind in block_pattern(cfg)]
 
 
 def init_paged_caches(cfg, batch, num_blocks, block_size, dtype, device):
-    """One physical ``(num_blocks + 1, block_size, K, D)`` K/V pool pair
-    per layer, shared across slot-table rows through block tables."""
-    del batch                      # attention-only: no per-row state
-    return [init_paged_block_cache(cfg, kind, num_blocks, block_size,
-                                   dtype, device)
+    """Per attention layer one physical ``(num_blocks + 1, block_size, K,
+    D)`` K/V pool pair, shared across slot-table rows through block
+    tables; per Mamba layer the per-row state of ``batch`` rows."""
+    return [init_paged_block_cache(cfg, kind, batch, num_blocks,
+                                   block_size, dtype, device)
             for kind in block_pattern(cfg)]
 
 
@@ -114,11 +116,16 @@ def decode_lm(params: LM, cfg, caches, tokens, cache_len, active=None,
     int32 per-row positions; ``active`` (B,) bool gates cache writes;
     ``block_tables`` (B, blocks_per_seq) int32 must be passed with the
     caches of :func:`init_paged_caches` and routes every layer's pool.
-    The caches are updated in place and returned.
+
+    Returns a new list: an attention layer's entry is its cache, updated
+    in place; a Mamba layer's is a new dict of new tensors, so the list
+    passed in still holds the state from before the step.
     """
     x = params.embed[tokens]                           # (B, 1, d)
+    new = []
     for layer, cache in zip(params.layers, caches):
-        x, _ = decode_block(layer, cfg, x, cache, cache_len, active,
-                            block_tables)
+        x, cache = decode_block(layer, cfg, x, cache, cache_len, active,
+                                block_tables)
+        new.append(cache)
     hidden = norm(params.final_norm, x)
-    return logits_last_token(params, cfg, hidden), caches
+    return logits_last_token(params, cfg, hidden), new

@@ -25,11 +25,15 @@ without it the blocks are freed and re-admission re-prefills.
 The scheduling logic is the JAX package's, line for line; what differs
 is the device side.  The model's KV pools are torch tensors that the
 kernels update **in place**, where the JAX engine rebinds immutable
-arrays.  So a dispatch the engine discards (a poisoned megastep, a
-retried decode) cannot be undone by keeping the old reference; instead
+arrays; Mamba layers' per-row state, by contrast, is rebuilt out of
+place every step.  So a dispatch the engine discards (a poisoned
+megastep, a retried decode) is undone by putting back the list of
+caches from before it, as the JAX engine does: that restores every
+Mamba layer's state exactly, and for the KV pools
 :meth:`ContinuousEngine._discard_dispatch` relies on the masking
-argument it states, which holds for the attention-only models the port
-serves, on the paged pool and on the dense per-slot cache alike.
+argument it states, on the paged pool and on the dense per-slot cache
+alike.  Models with per-row state also get a reset dispatch
+(``Stepper.reset_rows``) for every admission wave.
 
 Both engines drive the same :class:`~repro_torch.runtime.stepper.Stepper`
 with per-row cache positions, so for decoder-only models they emit the
@@ -495,7 +499,8 @@ class ContinuousEngine:
     **Robustness** (see ``runtime/faults.py``): every dispatch carries
     an in-dispatch NaN watchdog; a poisoned result degrades down a
     ladder — megastep discarded (see :meth:`_discard_dispatch` for why
-    the in-place pools need no checkpoint), N=1 sync retries with
+    the in-place pools need no checkpoint and what the free checkpoint
+    of per-row SSM state is), N=1 sync retries with
     bounded exponential backoff
     (``dispatch_retries`` / ``retry_backoff_s``), then only the affected
     rows fail with ``reason="poisoned_logits"``.  The block-pool budget
@@ -680,12 +685,9 @@ class ContinuousEngine:
         # slot-reset dispatches only exist to clear per-row state that
         # attention masking cannot neutralize (SSM state, conv windows).
         # Attention-only models read nothing but positions t <= cache_len
-        # — all freshly written by the new tenant — so there is no reset
-        # dispatch; _discard_dispatch rests on the same argument.
-        if self.kv.state_bytes:
-            raise NotImplementedError(
-                "per-row SSM state (slot reset, dispatch rollback) "
-                "arrives with the Mamba2/Jamba slice")
+        # — all freshly written by the new tenant — so the reset dispatch
+        # is skipped entirely (one dispatch saved per admission wave).
+        self._needs_reset = self.kv.state_bytes > 0
 
     def submit(self, req: Request) -> bool:
         """Queue a request.  Malformed submissions raise; a full queue
@@ -967,6 +969,9 @@ class ContinuousEngine:
         if not fresh.any():
             return 0
         self._g_queue.set(len(self.waiting))
+        if self._needs_reset:
+            self._m_dispatches.inc()
+            self.caches = self.stepper.reset_rows(self.caches, fresh)
         return int(fresh.sum())
 
     def _place(self, slot: int, seq: "_Seq", fresh: "np.ndarray") -> None:
@@ -1341,6 +1346,7 @@ class ContinuousEngine:
         t_d = self._rec.now()
         attempt = attempts_used
         while True:
+            snapshot = self.caches
             self._m_dispatches.inc()
             if attempt > attempts_used:
                 self._m_retry_dispatches.inc()
@@ -1357,7 +1363,7 @@ class ContinuousEngine:
                             attempt=attempt - attempts_used)
             if attempt - attempts_used >= self.dispatch_retries:
                 break        # ladder exhausted: fail the bad rows below
-            self._discard_dispatch()          # retry rewrites its writes
+            self._discard_dispatch(snapshot)  # the retry starts afresh
             time.sleep(self.retry_backoff_s
                        * (1 << (attempt - attempts_used)))
             attempt += 1
@@ -1384,22 +1390,24 @@ class ContinuousEngine:
                     or tok == seq.req.eos_id:
                 self._finish(int(s))
 
-    def _discard_dispatch(self) -> None:
+    def _discard_dispatch(self, snapshot: list) -> None:
         """Forget a dispatch whose results the engine throws away.
 
-        The JAX engine restores the pre-dispatch cache pytree.  Here the
-        caches were written in place, and no checkpoint is needed: a
-        dispatch writes only positions ``>= slot_len[b]`` of its rows'
-        own reserved blocks (``check_write`` refuses shared and
-        registered blocks) or the scratch row — or, on the dense cache,
-        of its rows' own slots.  Every such position lies
-        past the row's committed length, so it stays masked (``t <=
-        cache_len``) until the retry — or the block's next owner —
-        writes it again before anything reads it.  That holds only while
-        the whole per-token state lives in the KV blocks, i.e. for
-        attention-only models."""
-        assert self.kv.state_bytes == 0, \
-            "discarding a dispatch needs a checkpoint of per-row state"
+        ``snapshot`` is ``self.caches`` from before the dispatch; it is put
+        back, as the JAX engine restores its pre-dispatch cache pytree.
+        For Mamba layers that is an exact, free checkpoint: a decode step
+        builds new state and conv tensors (``torch.where(active, new,
+        old)``) and never writes the old ones, so the old list still holds
+        them — no copy of the per-row state (51 MB a row at mamba2-370m's
+        widths, by ``kv_cache.state_bytes``).  The KV
+        pools were written in place and need no checkpoint: a dispatch
+        writes only positions ``>= slot_len[b]`` of its rows' own reserved
+        blocks (``check_write`` refuses shared and registered blocks) or
+        the scratch row — or, on the dense cache, of its rows' own slots.
+        Every such position lies past the row's committed length, so it
+        stays masked (``t <= cache_len``) until the retry — or the
+        block's next owner — writes it again before anything reads it."""
+        self.caches = snapshot
 
     def _poison(self, attempt: int) -> "np.ndarray | None":
         """Fault-plane injection mask for this iteration's dispatch
@@ -1534,6 +1542,7 @@ class ContinuousEngine:
         self._m_megasteps.inc()
         self._h_megastep_len.observe(n)
         t_d = self._rec.now()
+        snapshot = self.caches                # free O(1) checkpoint
         toks_dev, act_dev, bad_dev, self.caches = self.stepper.megastep(
             self.params, self.caches, self.slot_last, self.slot_len,
             active, budget, forced, n_forced, eos_ids,
@@ -1550,7 +1559,7 @@ class ContinuousEngine:
             # rows individually).  No bookkeeping above this point
             # mutated engine state, so the fallback replays the
             # iteration exactly.
-            self._discard_dispatch()
+            self._discard_dispatch(snapshot)
             self._m_watchdog_trips.inc()
             self._m_megastep_fallbacks.inc()
             self._rec.point("fault", iteration=self.iterations,

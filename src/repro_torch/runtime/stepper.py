@@ -29,9 +29,10 @@ Each step function has a *dense* flavour (``block_tables=None``: the
 per-row caches of ``api.init_caches``) and a *paged* one (a ``(B,
 blocks_per_seq)`` block table routing every layer's pool of
 ``api.init_paged_caches``); ``megastep_sizes`` records ``(paged, N)``
-per megastep length run.  The row reset (``reset_rows``) that clears
-per-row SSM state arrives with the Mamba2/Jamba slice: attention-only
-models never need it.
+per megastep length run.  ``reset_rows`` clears the per-row state of
+newly admitted rows (SSM state and conv windows, which attention masking
+cannot neutralise) as one counted dispatch; the engines call it only for
+models that carry such state.
 """
 
 from __future__ import annotations
@@ -42,6 +43,10 @@ import torch
 from .sampling import (greedy_serving, logits_watchdog, megastep_advance,
                        poison_logits, select_tokens)
 from .telemetry import MetricsRegistry
+
+# cache entries without a batch axis: a dense cache's slot positions and
+# tile, the physical block pools of a paged one
+_ROWLESS = ("pos", "tile", "k_pool", "v_pool")
 
 
 class Stepper:
@@ -181,3 +186,27 @@ class Stepper:
             act_out.append(active)
             last, active = nxt, nactive
         return torch.stack(toks_out), torch.stack(act_out), bad, caches
+
+    # -- slot reset ---------------------------------------------------------
+
+    @torch.no_grad()
+    def reset_rows(self, caches, fresh):
+        """Zero every per-row cache entry of rows with ``fresh[b]`` True — a
+        new tenant must see exactly the state ``init_caches`` would give
+        it (SSM state / conv windows are carried outside the masked KV
+        region, so stale tenants would otherwise leak through).  Block
+        pools and slot positions have no rows and need no reset: every
+        position a new tenant can attend to (t <= cache_len) is freshly
+        written before it is read.  Returns new per-layer dicts; the
+        tensors passed in are not written."""
+        self._m_dispatches.inc()
+        fresh = self._device(fresh, torch.bool)
+        out = []
+        for cache in caches:
+            new = dict(cache)
+            for name, a in cache.items():
+                if name not in _ROWLESS:
+                    rows = fresh.reshape((-1,) + (1,) * (a.ndim - 1))
+                    new[name] = torch.where(rows, torch.zeros_like(a), a)
+            out.append(new)
+        return out

@@ -136,5 +136,17 @@ def test_later_slices_raise():
 
     with pytest.raises(NotImplementedError, match="MoE slice"):
         dag_export._export_moe(None, cfg, None, None, 0, 1, 16)
-    with pytest.raises(NotImplementedError, match="Mamba2"):
-        dag_export._export_mamba(None, cfg, None, None, 0, 1, 16)
+    # Mamba2 mixers have landed (tests/test_torch_mamba.py holds them to
+    # the JAX exporter): four nodes a layer, the scan a fallback node
+    from repro_torch.models import build_model
+
+    mamba = get_config("mamba2-370m").reduced()
+    lm = build_model(mamba, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    g, _ = export_graph(mamba, lm, 1, 16)
+    names = [n.name for n in g.nodes.values()]
+    for i in range(mamba.num_layers):
+        for part in ("in_proj", "conv", "ssd_scan", "out_proj"):
+            assert f"L{i}.{part}" in names
+    assert [n.name for n in g.nodes.values() if not n.supported] == \
+        [f"L{i}.ssd_scan" for i in range(mamba.num_layers)]

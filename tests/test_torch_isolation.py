@@ -151,6 +151,30 @@ def test_serve_cli_on_cpu(capsys):
         main(args + ["--engine", "round", "--fault-seed", "1"])
 
 
+def test_serve_cli_on_cpu_mamba2(capsys, monkeypatch):
+    """``--arch mamba2-370m`` serves on the CPU through every engine with
+    one set of streams, the reset dispatch counted; the host tier flag is
+    accepted and stays off (per-row state), the fault plane recovers."""
+    from repro_torch.launch.serve import main
+
+    args = ["--arch", "mamba2-370m", "--device", "cpu", "--requests", "3",
+            "--max-new", "4", "--max-batch", "2", "--hbm-budget", "256M"]
+    streams = []
+    for extra in ([], ["--no-paged"], ["--engine", "round"],
+                  ["--megastep", "1"], ["--host-pool", "1M"]):
+        main(args + extra)
+        out = capsys.readouterr().out
+        assert "3/3 requests" in out and "host tier" not in out, extra
+        streams.append([line.split("->")[1] for line in out.splitlines()
+                        if line.startswith("req ")])
+    assert all(s == streams[0] for s in streams)
+    main(args + ["--fault-seed", "3"])
+    assert "degraded activations" in capsys.readouterr().out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--arch", "mamba2-370m", "--requests", "1"])
+
+
 def _paged_args(device):
     rng = np.random.default_rng(0)
     B, H, K, D, bs, bpr = 2, 4, 2, 16, 4, 3
@@ -182,6 +206,17 @@ def _dense_args(device):
     return (q, kv, kv, pos, lens), (qs, kv, kv)
 
 
+def _ssd_args(device):
+    """ssd_scan in the models' layout: b=1, S=16, H=4, G=2, P=8, N=4."""
+    rng = np.random.default_rng(3)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.tensor(rng.standard_normal((1, 16, 4, 8)), **f32),
+            torch.tensor(rng.uniform(0.01, 0.2, (1, 16, 4)), **f32),
+            -torch.tensor(rng.uniform(0.5, 2.0, 4), **f32),
+            torch.tensor(rng.standard_normal((1, 16, 2, 4)), **f32),
+            torch.tensor(rng.standard_normal((1, 16, 2, 4)), **f32))
+
+
 def _branch_args(device):
     rng = np.random.default_rng(1)
     xs = [torch.tensor(rng.standard_normal((8, 16), dtype=np.float32),
@@ -208,6 +243,8 @@ def test_wrappers_take_the_plain_path_only_on_cpu(monkeypatch):
         launches, paged_append, paged_decode_attention,
         paged_decode_attention_plain)
     from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.kernels.ssd_scan import launches as ss_launches
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
     def no_build(name):
         raise AssertionError(f"CPU tensors must not build {name}")
@@ -218,7 +255,8 @@ def test_wrappers_take_the_plain_path_only_on_cpu(monkeypatch):
         "repro_torch.kernels.decode_attention.decode_attention")
     fa = importlib.import_module(
         "repro_torch.kernels.flash_attention.flash_attention")
-    for module in (pa, bm, da, fa, _build):
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+    for module in (pa, bm, da, fa, ss, _build):
         monkeypatch.setattr(module, "load", no_build)
     before = dict(launches)
     bm_before = dict(bm_launches)
@@ -227,6 +265,10 @@ def test_wrappers_take_the_plain_path_only_on_cpu(monkeypatch):
     assert torch.equal(decode_attention(*dec), decode_attention_plain(*dec))
     assert torch.equal(flash_attention(*fl), flash_attention_plain(*fl))
     assert (da_launches, fa_launches) == new_before
+    ss_before = dict(ss_launches)
+    args = _ssd_args("cpu")
+    assert torch.equal(ssd_scan(*args, chunk=8), ssd_scan_plain(*args, 8))
+    assert ss_launches == ss_before
     q, pool, tables, lens, new = _paged_args("cpu")
     got = paged_decode_attention(q, pool, pool, tables, lens)
     torch.testing.assert_close(
@@ -251,6 +293,8 @@ def test_wrappers_take_the_plain_path_only_on_cpu(monkeypatch):
         flash_attention(*fl)
     with pytest.raises(ValueError, match="no kernel"):
         paged_append(pool, pool, new, new, tables, lens, lens)
+    with pytest.raises(ValueError, match="no kernel"):
+        ssd_scan(*_ssd_args("meta"), chunk=8)
 
 
 @pytest.mark.cuda
@@ -297,3 +341,13 @@ def test_wrappers_launch_their_kernel_on_the_card():
                                rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(got_f, flash_attention_plain(*fl),
                                rtol=2e-5, atol=2e-5)
+    from repro_torch.kernels.ssd_scan import launches as ss_launches
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+
+    args = _ssd_args("cuda")
+    n_ss = ss_launches["ssd_scan"]
+    got_s = ssd_scan(*args, chunk=8)
+    torch.cuda.synchronize()
+    assert ss_launches["ssd_scan"] == n_ss + 1
+    torch.testing.assert_close(got_s, ssd_scan_plain(*args, chunk=8),
+                               rtol=2e-4, atol=2e-4)

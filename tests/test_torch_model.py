@@ -113,9 +113,11 @@ def test_paged_decode_matches_jax_model(models):
 
 def test_dense_and_scalar_paths_wait_for_their_slice(models):
     """The dense and scalar paths have landed (tests/
-    test_torch_dense_serving.py); what still waits: a paged cache takes
-    no scalar cache_len (JAX's error), the loss waits for the training
-    slice, Mamba blocks for theirs."""
+    test_torch_dense_serving.py), and Mamba blocks (tests/
+    test_torch_mamba.py); what still waits: a paged cache takes no scalar
+    cache_len (JAX's error), the loss waits for the training slice, MoE
+    blocks for theirs.  mamba2 builds: Mamba2 mixers with no channel
+    mix, and per-row state (not a block pool) in its paged caches."""
     _, _, tapi, tparams = models
     caches = tapi.init_paged_caches(B, B * BPR, BS)
     batch = {"tokens": torch.zeros(B, 1, dtype=torch.int32),
@@ -124,6 +126,16 @@ def test_dense_and_scalar_paths_wait_for_their_slice(models):
         tapi.decode_fn(tparams, caches, batch)
     with pytest.raises(NotImplementedError, match="training"):
         tapi.loss_fn(tparams, batch)
-    with pytest.raises(NotImplementedError):
-        build_model(get_config("mamba2-370m").reduced(), device="cpu") \
+    with pytest.raises(NotImplementedError, match="MoE slice"):
+        build_model(get_config("dbrx-132b").reduced(), device="cpu") \
             .init(None)
+    cfg = get_config("mamba2-370m").reduced()
+    api = build_model(cfg, device="cpu")
+    lm = api.init(None)
+    assert [layer.kind for layer in lm.layers] == [("mamba", "none")] * 2
+    assert not any(hasattr(layer, n) for layer in lm.layers
+                   for n in ("attn", "mlp", "norm2"))
+    assert lm.layers[0].mamba.A_log.dtype == torch.float32
+    paged = api.init_paged_caches(B, B * BPR, BS)
+    assert [sorted(c) for c in paged] == [["conv", "state"]] * 2
+    assert paged[0]["state"].shape == (B, 32, 16, 16)

@@ -15,7 +15,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    bit-exact); ``branch_matmul`` against its plain version at the
    planner path's two sites (G=6, M=512, K=2560, N=240 and G=6, M=512,
    K=80, N=2560) in fp32 and bf16, and a ragged ``parallel_branches``
-   case (same tolerances; two launches bit-identical); median times by
+   case (same tolerances; two launches bit-identical; per fp32 site,
+   whether the kernel equals ``torch.bmm`` bit for bit); median times by
    CUDA events beside the bound and, for ``branch_matmul``, ``torch.bmm``;
    ``decode_attention`` on the model's ``(B, T, K, D)`` cache at the dense
    path's shape (B=8, H=K=32, D=80, T=160, tile 16) in bf16 and fp32, a
@@ -24,7 +25,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    T=4096, and bit-identical to ``paged_decode_attention`` on the same
    K/V laid into a block pool; ``flash_attention`` at the prefill shape
    (B=2, 32 heads, D=80, S=2048, causal) in bf16 and fp32, the
-   h2o-danube window case (B=1, S=6144) and a non-causal T > S case —
+   h2o-danube window case (B=1, S=6144), a non-causal T > S case, a GQA
+   32/8 case at S = T = 1000 (off the 64-row tile) and rows with no
+   valid key (S=32, T=8, window 4, causal or not, bf16 and fp32: the
+   mean of V over all T keys), each launched twice and bit-identical —
    times beside their bounds and one ``scaled_dot_product_attention``
    call each; ``ssd_scan`` (fp32) against its plain version and the
    sequential recurrence at rtol = atol = 2e-4 at the prefill shape
@@ -150,6 +154,8 @@ DANUBE = dict(H=32, K=8, D=120, window=4096)   # h2o-danube-3-4b widths
 FA_B, FA_S = 2, 2048               # flash_attention at the prefill shape
 FA_WINDOW_S = 6144                 # h2o-danube window case, B=1
 FA_CROSS = dict(B=2, S=448, T=1500)            # causal=False, T > S
+FA_OFF_TILE = dict(S=1000, K=8)    # S = T off the 64-row tile, GQA 32/8
+FA_EMPTY = dict(S=32, T=8, window=4)           # rows 11.. have no valid key
 PREFILL_B, PREFILL_S, PREFILL_RUNS = 2, 2048, 5
 XCHECK_PROMPT = 128                # prefill_fn vs the stepper's prefill
 # prefill logits vs other paths: normwise (||a - b|| / ||b||), bf16 model
@@ -531,11 +537,28 @@ def attention_phase(pa, da, fa, device):
                    for shape in ((B_, H_, S, D_), (B_, K, T_, D_),
                                  (B_, K, T_, D_)))
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        again = fa.flash_attention(q, k, v, causal=causal, window=window)
         want = fa.flash_attention_plain(q, k, v, causal, window)
         torch.cuda.synchronize()
         err["flash_attention"] = max(err["flash_attention"], check(
             "flash_attention", label, got, want, dtype))
-        del want
+        same = torch.equal(got, again)
+        log(f"flash_attention {label} {str(dtype)[6:]}: reruns "
+            f"{'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError("flash_attention differs from itself")
+        if window > 0 and S >= T_ + window:
+            # rows from T + window - 1 on have no valid key: mean of V
+            first = T_ + window - 1
+            mean = v.float().mean(dim=2, keepdim=True).repeat_interleave(
+                H_ // K, dim=1)
+            e = (got[:, :, first:].float() - mean).abs().max().item()
+            log(f"flash_attention {label}: rows {first}.. (no valid key) "
+                f"vs the mean of V: max abs err {e:.3e}")
+            if not e <= TOL[dtype]:
+                raise AssertionError("flash_attention: a row with no "
+                                     "valid key is not the mean of V")
+        del want, again
         if timed is not None:
             timed[label] = time_case(
                 "flash_attention", label,
@@ -556,6 +579,15 @@ def attention_phase(pa, da, fa, device):
     c = FA_CROSS
     flash(f"cross B={c['B']} S={c['S']} T={c['T']} causal=False", c["B"],
           H, H, c["S"], c["T"], D, False, 0, torch.bfloat16)
+    flash(f"GQA {H}/{FA_OFF_TILE['K']} S=T={FA_OFF_TILE['S']} D={D} causal",
+          1, H, FA_OFF_TILE["K"], FA_OFF_TILE["S"], FA_OFF_TILE["S"], D,
+          True, 0, torch.bfloat16, timed=extra)
+    e = FA_EMPTY
+    for dtype in (torch.bfloat16, torch.float32):
+        for causal in (True, False):
+            flash(f"S={e['S']} T={e['T']} window={e['window']} "
+                  f"causal={causal}", 1, 4, 2, e["S"], e["T"], 16, causal,
+                  e["window"], dtype)
     timing["decode_attention"] = timing.pop("main path, every row at 100")
     timing["flash_attention"] = timing.pop(
         f"B={FA_B} H=K={H} S=T={FA_S} D={D} causal")
@@ -1020,6 +1052,7 @@ def branch_phase(bm, device):
             got = bm.branch_matmul(x, w)
             again = bm.branch_matmul(x, w)
             want = bm.branch_matmul_plain(x, w)
+            as_bmm = torch.equal(got, torch.bmm(x, w))
             torch.cuda.synchronize()
             e = (got.float() - want.float()).abs().max().item()
             same = torch.equal(got, again)
@@ -1030,7 +1063,9 @@ def branch_phase(bm, device):
             bound, bound_by = gemm_bound(G, M, K, N, dtype)
             log(f"branch_matmul {site} {str(dtype)[6:]} G={G} M={M} K={K} "
                 f"N={N}: max abs err {e:.3e} (tol {TOL[dtype]}), reruns "
-                f"{'bit-identical' if same else 'DIFFER'}; kernel "
+                f"{'bit-identical' if same else 'DIFFER'}, "
+                f"{'bit-identical to' if as_bmm else 'differs from'} "
+                f"torch.bmm; kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm "
                 f"{lib_ms:.4f} ms, bound {bound:.5f} ms ({bound_by})")
             if not (e <= TOL[dtype] and same):

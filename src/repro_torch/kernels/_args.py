@@ -8,7 +8,10 @@ here, in Python, before a launch.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+import torch.utils.deterministic
 
 NEG_INF = -1e30
 #: the kernels' ``dtype`` codes
@@ -37,3 +40,16 @@ def check_cuda(name: str, tensors: dict, dtype: torch.dtype) -> None:
     if dtype not in KERNEL_DTYPES:
         raise TypeError(f"{name}: kernel takes float32 or bfloat16, got "
                         f"{dtype}")
+
+
+@contextlib.contextmanager
+def unfilled():
+    """Allocations inside skip deterministic mode's NaN fill of new memory
+    (a memset as large as the tensor, on the stream before the kernel).
+    For kernel outputs only: the kernel writes every element."""
+    saved = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.utils.deterministic.fill_uninitialized_memory = saved

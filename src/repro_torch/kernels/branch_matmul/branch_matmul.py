@@ -5,7 +5,9 @@
 The G branches of a §3.1-balanced parallel group (attention heads,
 experts) run as one launch of ``csrc/branch_matmul.cu``, with the branch
 index as a grid axis.  float32 or bfloat16 operands, fp32 accumulation
-(plain FMA, no TF32), output in ``x.dtype``; any M, K and N.
+(plain FMA, no TF32, one chain per output in ascending k), output in
+``x.dtype``; any M, K and N.  The kernel picks its block tile by shape:
+64 x 64 where that gives every SM four blocks or more, else 32 x 64.
 
 The wrapper runs :func:`branch_matmul_plain` when the tensors lie on the
 CPU, and otherwise launches the kernel on the current stream or raises:
@@ -17,11 +19,11 @@ from __future__ import annotations
 
 import torch
 
-from .._args import KERNEL_DTYPES
+from .._args import KERNEL_DTYPES, unfilled
 from .._build import load
 
 MAX_GRID_YZ = 65535            # CUDA's limit on gridDim.y and gridDim.z
-BLOCK_M = 64                   # output rows per block (csrc: BM)
+BLOCK_M = 32                   # fewest output rows per block (csrc: BM)
 
 #: kernel launches since the last :func:`reset_launches`
 launches = {"branch_matmul": 0}
@@ -59,7 +61,8 @@ def branch_matmul(x, w):
     N = w.shape[2]
     if G > MAX_GRID_YZ or -(-M // BLOCK_M) > MAX_GRID_YZ:
         raise ValueError(f"branch_matmul: G={G}, M={M} exceed the grid")
-    out = torch.empty((G, M, N), dtype=x.dtype, device=x.device)
+    with unfilled():
+        out = torch.empty((G, M, N), dtype=x.dtype, device=x.device)
     lib = load("branch_matmul")
     rc = lib.branch_matmul(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                            G, M, K, N, KERNEL_DTYPES[x.dtype],

@@ -7,14 +7,19 @@ only (the TPU kernel has no backward either).  Query head ``h`` reads KV
 head ``h // (H // K)``; query and key positions both start at 0; key
 ``j`` is valid for query ``i`` iff (not ``causal`` or ``j <= i``) and
 (``window == 0`` or ``j > i - window``).  ``causal=False`` and ``T !=
-S`` (cross attention) are allowed.  The JAX kernel's docstring also
-promises a kv validity length for right-padded caches; its function
-takes none, and neither does this one.
+S`` (cross attention) are allowed.  A row with no valid key (``T == 0``,
+or ``window > 0`` and ``i >= T + window - 1``) is the mean of V over all
+T keys, as the JAX kernel's softmax over T scores of -1e30 gives.  The
+JAX kernel's docstring also promises a kv validity length for
+right-padded caches; its function takes none, and neither does this one.
 
 The kernel (``csrc/flash_attention.cu``) takes every operand by strides
 with unit stride over D, so :func:`attend_bshd` hands it the models'
 ``(B, S, H, D)`` activations as transposed views, without copies, and
-gets its output back in that layout.
+gets its output back in that layout.  bfloat16 runs on the tensor cores
+(``mma.sync``, fp32 accumulation, P rounded to bf16 before P . V);
+float32 on the CUDA cores in full fp32.  Both take 64 query rows a block
+and D <= 128.
 
 The wrapper checks its arguments, then runs :func:`flash_attention_plain`
 when the tensors lie on the CPU, and otherwise launches the kernel on
@@ -29,11 +34,11 @@ import ctypes
 import numpy as np
 import torch
 
-from .._args import KERNEL_DTYPES, NEG_INF
+from .._args import KERNEL_DTYPES, NEG_INF, unfilled
 from .._build import load
 
 MAX_HEAD_DIM = 128             # csrc: kMaxD
-BLOCK_Q = 64                   # query rows per block (csrc: kBQ)
+BLOCK_Q = 64                   # query rows per block (csrc: kBQ, both kernels)
 MAX_GRID_YZ = 65535            # CUDA's limit on gridDim.y and gridDim.z
 
 #: kernel launches since the last :func:`reset_launches`
@@ -56,8 +61,9 @@ def _mask(S: int, T: int, causal: bool, window: int, device):
 
 
 def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0):
-    """Plain PyTorch version: the (S, T) scores in fp32 (q scaled first,
-    as the kernel does), masked softmax, P . V in fp32."""
+    """Plain PyTorch version: the (S, T) scores in fp32 (q scaled first),
+    masked softmax (masked scores -1e30, so a row with no valid key
+    weighs all T keys alike), P . V in fp32."""
     B, H, S, D = q.shape
     K, T = k.shape[1], k.shape[2]
     qf = q.float().reshape(B, K, H // K, S, D) \
@@ -94,11 +100,13 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
                              f"expected {q.device}")
     if D > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM}")
-    if H > MAX_GRID_YZ or B > MAX_GRID_YZ:
-        raise ValueError(f"flash_attention: B={B}, H={H} exceed the grid")
-    out = torch.empty_like(q)           # q's layout (preserve_format)
+    if max(H, B, -(-S // BLOCK_Q)) > MAX_GRID_YZ:
+        raise ValueError(f"flash_attention: B={B}, H={H}, S={S} exceed "
+                         f"the grid")
+    with unfilled():
+        out = torch.empty_like(q)       # q's layout (preserve_format)
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        if t.stride(3) != 1:
+        if t.numel() and t.stride(3) != 1:     # T = 0: K/V never read
             raise ValueError(f"flash_attention: {name} needs unit stride "
                              f"over D, got strides {t.stride()}")
     strides = (ctypes.c_longlong * 12)(*(

@@ -129,6 +129,22 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         parallel_branches([], [])
 
 
+
+def test_outputs_skip_the_nan_fill_and_restore_it():
+    """Kernel outputs are allocated without deterministic mode's NaN fill
+    (the kernel writes every element); the setting is restored after,
+    also when the allocation raises."""
+    from repro_torch.kernels._args import unfilled
+
+    flag = torch.utils.deterministic.fill_uninitialized_memory
+    with unfilled():
+        assert torch.utils.deterministic.fill_uninitialized_memory is False
+    assert torch.utils.deterministic.fill_uninitialized_memory == flag
+    with pytest.raises(RuntimeError):
+        with unfilled():
+            raise RuntimeError("allocation failed")
+    assert torch.utils.deterministic.fill_uninitialized_memory == flag
+
 # -- on the card ------------------------------------------------------------
 
 @pytest.fixture
@@ -170,3 +186,57 @@ def test_ragged_branches_on_the_card(card):
                        / np.float32(np.sqrt(80)), device=card) for _ in xs]
     for o, x, w in zip(grouped_branch_matmul(xs, ws), xs, ws):
         torch.testing.assert_close(o, x @ w, rtol=0, atol=2e-5)
+
+
+# around both block tiles the kernel picks: 32 x 64 (few tiles) and 64 x 64
+# (four blocks an SM or more: 6x513x33x2561 and 4x640x19x1920); K and N off
+# the multiple of 4 take the 4-byte copies
+EDGE_SHAPES = [(2, 31, 15, 63), (2, 33, 17, 65), (3, 64, 16, 128),
+               (1, 95, 48, 129), (2, 1, 2561, 7), (6, 513, 33, 2561),
+               (4, 640, 19, 1920), (3, 257, 129, 1023)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", EDGE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_kernel_matches_plain_around_tile_edges(card, shape, dtype):
+    x, w = _operands(7, *shape)
+    tt = getattr(torch, dtype)
+    x, w = (torch.tensor(a, device=card).to(tt) for a in (x, w))
+    got = branch_matmul(x, w)
+    want = branch_matmul_plain(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == tt and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", [(6, 512, 2560, 240), (6, 512, 80, 2560)],
+                         ids=["qkv", "out"])
+def test_fp32_kernel_bit_identical_to_bmm(card, site):
+    """One FMA chain per output, ascending k from 0: at the planner's two
+    sites the kernel equals cuBLAS bmm bit for bit (deterministic mode,
+    TF32 off), which the planner's fused-vs-plain check leans on."""
+    x, w = (torch.tensor(a, device=card) for a in _operands(8, *site))
+    got = branch_matmul(x, w)
+    want = torch.bmm(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unaligned_operands_take_the_same_chain(card, dtype):
+    """A base off the 16-byte boundary takes the element-wise copies and
+    gives the aligned launch's result bit for bit."""
+    tt = getattr(torch, dtype)
+    x, w = (torch.tensor(a, device=card).to(tt)
+            for a in _operands(9, 3, 200, 96, 160))
+    buf = torch.empty(x.numel() + 1, dtype=tt, device=card)
+    x_off = buf[1:].view(x.shape).copy_(x)
+    got = branch_matmul(x, w)
+    odd = branch_matmul(x_off, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, odd)

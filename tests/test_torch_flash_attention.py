@@ -113,6 +113,31 @@ def test_attend_bshd_matches_model_attention(jx, window):
                                **TOL["float32"])
 
 
+# rows with no valid key: S >= T + window (from row T + window - 1 on),
+# causal or not; the JAX kernel gives the mean of V over all T keys
+EMPTY = dict(B=1, H=2, K=2, S=32, T=8, D=16, window=4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_rows_with_no_valid_key_match_jax(jx, causal):
+    """The plain version (what the CUDA kernels are held to) against the
+    JAX kernel in interpret mode: rows from T + window - 1 on are
+    mean(V) over all T keys, the rows above them ordinary attention."""
+    c = EMPTY
+    arrays = _inputs(7, c["B"], c["H"], c["K"], c["S"], c["T"], c["D"])
+    got = flash_attention_plain(*(torch.tensor(a) for a in arrays),
+                                causal, c["window"]).numpy()
+    ker = jx.op(*(jx.jnp.asarray(a) for a in arrays), causal=causal,
+                window=c["window"], block_q=8, block_k=8, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(ker), **TOL["float32"])
+    first = c["T"] + c["window"] - 1
+    mean = arrays[2].mean(axis=2, keepdims=True)       # (B, K, 1, D)
+    np.testing.assert_allclose(got[:, :, first:],
+                               np.broadcast_to(mean, got[:, :, first:].shape),
+                               **TOL["float32"])
+    assert np.abs(got[:, :, first - 1] - mean[:, :, 0]).max() > 1e-2
+
+
 def test_wrapper_rejects_bad_arguments():
     q, k, v = (torch.tensor(a) for a in _inputs(2, 1, 3, 2, 8, 8, 16))
     with pytest.raises(ValueError):                 # H not a multiple of K
@@ -162,3 +187,115 @@ def test_flash_kernel_takes_the_models_layout(cuda):
     want = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
                                  v.transpose(1, 2)).transpose(1, 2)
     torch.testing.assert_close(got, want, **TOL["float32"])
+
+
+def _card_inputs(device, dtype, seed, B, H, K, S, T, D):
+    return tuple(torch.tensor(a).to(device, TORCH_DT[dtype])
+                 for a in _inputs(seed, B, H, K, S, T, D))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_rows_with_no_valid_key(cuda, dtype, causal):
+    """Rows from T + window - 1 on have no valid key: both kernels give
+    the plain version's mean of V over all T keys (padding keys of the
+    last tile never enter the denominator, skipped tiles are no
+    excuse)."""
+    c = EMPTY
+    q, k, v = _card_inputs(cuda, dtype, 7, c["B"], c["H"], c["K"], c["S"],
+                           c["T"], c["D"])
+    got = flash_attention(q, k, v, causal=causal, window=c["window"])
+    want = flash_attention_plain(q, k, v, causal, c["window"])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    first = c["T"] + c["window"] - 1
+    mean = v.float().mean(dim=2, keepdim=True).expand(-1, -1, c["S"] - first,
+                                                      -1)
+    torch.testing.assert_close(got[:, :, first:].float(), mean, **TOL[dtype])
+
+
+# bf16 on the tensor cores: every head dim the models use (D padded to a
+# multiple of 16 in shared memory), S and T off the 64-row / 64-key tiles,
+# GQA groups 1, 4 and 8, causal, windowed and cross attention with T > S
+BF16_SWEEP = [
+    # B, H, K, S, T, D, causal, window
+    (1, 2, 2, 77, 77, 16, True, 0),
+    (2, 4, 1, 130, 130, 32, True, 0),
+    (1, 8, 2, 200, 200, 64, True, 50),
+    (2, 8, 8, 257, 257, 80, True, 0),
+    (1, 8, 1, 65, 191, 80, False, 0),
+    (1, 16, 2, 300, 300, 120, True, 64),
+    (1, 4, 4, 129, 129, 128, False, 100),
+    (1, 8, 1, 63, 1000, 128, False, 0),
+    (1, 32, 8, 1000, 1000, 80, True, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,K,S,T,D,causal,window", BF16_SWEEP)
+def test_flash_bf16_kernel_sweep(cuda, B, H, K, S, T, D, causal, window):
+    q, k, v = _card_inputs(cuda, "bfloat16", 5, B, H, K, S, T, D)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,K,S,T,D,causal,window", [
+    (1, 8, 2, 200, 70, 80, True, 50),        # rows 119.. empty
+    (2, 4, 4, 150, 20, 120, False, 33),      # rows 52.., cross, skipped tiles
+    (1, 4, 1, 100, 1, 64, True, 3),          # a single key
+    (1, 2, 2, 70, 0, 16, False, 5),          # no key at all: zeros
+])
+def test_flash_kernel_rows_with_no_valid_key_off_the_tile(
+        cuda, B, H, K, S, T, D, causal, window):
+    for dtype in ("float32", "bfloat16"):
+        q, k, v = _card_inputs(cuda, dtype, 8, B, H, K, S, T, D)
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attention_plain(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_bf16_kernel_takes_the_models_layout(cuda):
+    """The models' strided (B, S, H, D) views through attend_bshd, in
+    bf16 with GQA and a head dim off the 16-element mma depth."""
+    B, S, H, K, D = 2, 333, 8, 2, 120
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.tensor(rng.standard_normal(s).astype(np.float32),
+                            device=cuda).to(torch.bfloat16)
+               for s in ((B, S, H, D), (B, S, K, D), (B, S, K, D)))
+    for window in (0, 100):
+        got = attend_bshd(q, k, v, causal=True, window=window)
+        assert got.shape == (B, S, H, D) and got.is_contiguous()
+        want = flash_attention_plain(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), True,
+            window).transpose(1, 2)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **TOL["bfloat16"])
+
+
+@pytest.mark.cuda
+def test_flash_bf16_kernel_is_deterministic(cuda):
+    """A fixed summation order: two launches are bit-identical, and an
+    operand that is not 16-byte aligned (the element-wise load path)
+    gives the same result as the aligned one."""
+    B, H, K, S, D = 1, 8, 2, 300, 80
+    q, k, v = _card_inputs(cuda, "bfloat16", 6, B, H, K, S, S, D)
+    got = flash_attention(q, k, v, causal=True, window=0)
+    again = flash_attention(q, k, v, causal=True, window=0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    # the same values at an offset of one element: strides stay, bases
+    # lose their 16-byte alignment
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    q_off = buf[1:].view(q.shape).copy_(q)
+    odd = flash_attention(q_off, k, v, causal=True, window=0)
+    torch.cuda.synchronize()
+    assert torch.equal(odd, got)

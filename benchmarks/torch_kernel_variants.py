@@ -1,4 +1,4 @@
-"""The design choices of two hand-written kernels, timed against their
+"""The design choices of the hand-written kernels, timed against their
 alternatives on one NVIDIA GPU.
 
     python3 benchmarks/torch_kernel_variants.py      # from the repository root
@@ -21,7 +21,20 @@ this one card.
   result equals ``torch.bmm`` bit for bit;
 - ``branch_matmul``'s output allocated with deterministic mode's NaN fill
   (``torch.empty`` as it comes) against without it (the shipped
-  ``kernels._args.unfilled``).
+  ``kernels._args.unfilled``);
+- the decode kernels (``decode_attention`` and ``paged_decode_attention``,
+  one header ``decode_tile.cuh``): one split length ``kSplitTiles`` for
+  every launch shape, at ``SPLIT_TILES``, a lane group folding one
+  contiguous run of a split instead of every groups-th chunk, no cap on
+  registers (the shipped kernels ask for 3 or 4 blocks an SM where their
+  registers allow), one head a block (MHA) in blocks of 4 warps instead of
+  8, with chunks of 4 positions or of 2 at 8 blocks an SM, the splits
+  merged by a second kernel instead of the last block to finish, and the
+  output and scratch allocated with the NaN fill, each at the three shapes
+  ``chip_smoke.py`` times (the dense path's main shape, T=4096,
+  h2o-danube's GQA window case at T=8192), beside SDPA, and whether each
+  variant equals the shipped kernel bit for bit (it must, except another
+  split length or chunk order).
 """
 
 from __future__ import annotations
@@ -69,9 +82,95 @@ TILES = ((64, 64, 16, 8, 4, 3), (32, 64, 32, 4, 4, 2), (32, 64, 16, 4, 8, 3),
          (64, 128, 16, 8, 4, 3))
 
 
-def patched(name, patches):
-    """``csrc/<name>.cu`` with each (old, new) replaced once."""
-    with open(os.path.join(CSRC, f"{name}.cu")) as f:
+# the decode kernels: one split length for every launch shape (the
+# shipped one has 16 tiles for MHA blocks, 32 for GQA); each lane group
+# folding one contiguous run of the split instead of every groups-th
+# chunk; no register cap; the splits merged by a second kernel
+SPLIT_TILES = (8, 16, 32)
+SPLIT_LINE = "  static constexpr int kSplitTiles = kOneHead ? 16 : 32;"
+CONTIGUOUS_RUNS = (
+    ("""    // group grp folds chunks grp, grp + NG, ... of U positions
+    const int stride = U * NG;
+    const int j0 = grp * U;
+    const int n_chunks = (P + stride - 1) / stride;   // the same for all""",
+     """    // group grp folds positions [grp R, grp R + R) in chunks of U
+    const int R = (P + NG - 1) / NG;
+    const int stride = U;
+    const int j0 = grp * R;
+    const int j_end = min(j0 + R, P);
+    const int n_chunks = (R + U - 1) / U;"""),
+    ("load_chunk<T>(a, rows, k, v, j0, P, lg, D, aligned);",
+     "load_chunk<T>(a, rows, k, v, j0, j_end, lg, D, aligned);"),
+    ("j0 + (c + 1) * stride, P, lg, D,",
+     "j0 + (c + 1) * stride, j_end, lg, D,"),
+    ("j0 + (c + 2) * stride, P, lg, D,",
+     "j0 + (c + 2) * stride, j_end, lg, D,"),
+)
+# one head a block (MHA): 4 warps as the other shapes, with chunks of 4
+# positions (4 blocks an SM) or of 2 (8 blocks an SM)
+MHA_WARPS = "  static constexpr int kWarps = kOneHead ? 8 : 4;"
+MHA_CHUNK = "  static constexpr int kChunk = kOneHead ? 2 : "
+MHA_BLOCKS = "  static constexpr int kMinBlocks = kOneHead ? 3 : "
+MHA_AS_OTHERS = (
+    (MHA_WARPS, "  static constexpr int kWarps = 4;"),
+    (MHA_CHUNK, "  static constexpr int kChunk = "),
+    (MHA_BLOCKS, "  static constexpr int kMinBlocks = "))
+MHA_NARROW = (
+    (MHA_WARPS, "  static constexpr int kWarps = 4;"),
+    (MHA_BLOCKS, "  static constexpr int kMinBlocks = kOneHead ? 8 : "))
+NO_REGISTER_CAP = (("""__launch_bounds__(decode_tile::Shape<NV, GC>::kThreads,
+                                  decode_tile::Shape<NV, GC>::kMinBlocks)""",
+                    "__launch_bounds__("
+                    "decode_tile::Shape<NV, GC>::kThreads)"),)
+SECOND_KERNEL = ((
+    """  if (w.n_split == 1) return;
+
+  // the last block of this (row, head chunk) to arrive merges the splits
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(counters + w.counter, 1) == w.n_split - 1;
+    if (last) counters[w.counter] = 0;          // ready for the next launch
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int j = threadIdx.x; j < w.gn * D; j += blockDim.x) {""",
+    """}
+
+// the splits of one (row, head chunk) merged by a second kernel; grid
+// (1, K * head chunks, B)
+template <typename T>
+__global__ void __launch_bounds__(128)
+decode_combine_kernel(T* __restrict__ out, const float* __restrict__ scratch,
+                      int H, int D, int G, int GC, int n_split) {
+  const int n_hc = (G + GC - 1) / GC;
+  const int kh = blockIdx.y / n_hc;
+  const int hc = blockIdx.y - kh * n_hc;
+  Where w;
+  w.gn = min(GC, G - hc * GC);
+  w.n_split = n_split;
+  const size_t bh0 = (size_t)blockIdx.z * H + kh * G + hc * GC;
+  const size_t n_rows = (size_t)gridDim.z * H * n_split;
+  const float* ml = scratch;
+  const float* acc = scratch + 2 * n_rows;
+  for (int j = threadIdx.x; j < w.gn * D; j += blockDim.x) {"""),)
+COMBINE_LAUNCH = ((
+    """    return static_cast<int>(cudaGetLastError());
+  });""",
+    """    if (grid.x > 1)
+      decode_tile::decode_combine_kernel<T>
+          <<<dim3(1, grid.y, grid.z), 128, 0, stream>>>(
+              static_cast<T*>(out), scratch, H, D, H / K, GC, grid.x);
+    return static_cast<int>(cudaGetLastError());
+  });"""),)
+DECODE = ("decode_attention", "paged_decode_attention")
+
+
+def patched(name, patches, suffix=".cu"):
+    """``csrc/<name><suffix>`` with each (old, new) replaced once."""
+    with open(os.path.join(CSRC, f"{name}{suffix}")) as f:
         src = f.read()
     for old, new in patches:
         if src.count(old) != 1:
@@ -96,26 +195,65 @@ def tile_harness():
 
 
 def build(sources):
-    """Compile {name: source text} in parallel; returns {name: CDLL}."""
+    """Compile {name: source text, or {file name: text} whose first file
+    is the one compiled (the others are the headers it includes, in its
+    own directory)} in parallel; returns {name: CDLL}."""
     from repro_torch.kernels import _build
 
-    os.makedirs(OUT, exist_ok=True)
     procs = {}
     for name, src in sources.items():
-        path = os.path.join(OUT, f"{name}.cu")
-        with open(path, "w") as f:
-            f.write(src)
+        files = src if isinstance(src, dict) else {f"{name}.cu": src}
+        where = os.path.join(OUT, name)
+        os.makedirs(where, exist_ok=True)
+        for file, text in files.items():
+            with open(os.path.join(where, file), "w") as f:
+                f.write(text)
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-I", CSRC, "-o",
-             os.path.join(OUT, f"lib{name}.so"), path],
+             os.path.join(where, f"lib{name}.so"),
+             os.path.join(where, next(iter(files)))],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc exited {proc.returncode}\n{log}")
-        libs[name] = ctypes.CDLL(os.path.join(OUT, f"lib{name}.so"))
+        libs[name] = ctypes.CDLL(os.path.join(OUT, name, f"lib{name}.so"))
     return libs
+
+
+def decode_sources(header_patches=(), cu_patches=()):
+    """Both decode kernels' sources with the patches applied, each with
+    its copy of the patched header."""
+    header = patched("decode_tile", header_patches, suffix=".cuh")
+    return {f"{name}.cu": patched(name, cu_patches) for name in DECODE}, \
+        header
+
+
+def variant_lib(label, name):
+    """The library name of decode kernel ``name`` in variant ``label``."""
+    return name + "_" + "".join(c if c.isalnum() else "_" for c in label)
+
+
+def decode_variant_sources():
+    """{variant label: {library name: files}} for the decode kernels."""
+    out = {}
+    for tiles in SPLIT_TILES:
+        out[f"split {tiles} tiles"] = ((
+            (SPLIT_LINE, f"  static constexpr int kSplitTiles = {tiles};"),),
+            ())
+    out["contiguous runs"] = (CONTIGUOUS_RUNS, ())
+    out["no register cap"] = ((), NO_REGISTER_CAP)
+    out["MHA 4 warps, chunks of 4"] = (MHA_AS_OTHERS, ())
+    out["MHA 4 warps, chunks of 2, 8 blocks an SM"] = (MHA_NARROW, ())
+    out["second combine kernel"] = (SECOND_KERNEL, COMBINE_LAUNCH)
+    sources = {}
+    for label, (hp, cp) in out.items():
+        cus, header = decode_sources(hp, cp)
+        for name in DECODE:
+            sources[(label, name)] = {f"{name}.cu": cus[f"{name}.cu"],
+                                      "decode_tile.cuh": header}
+    return sources
 
 
 @contextlib.contextmanager
@@ -245,6 +383,99 @@ def gemm_variants(harness, device, flush):
               f" unless marked): " + "; ".join(row), flush=True)
 
 
+def decode_shapes(device):
+    """(label, dense inputs, paged inputs) at chip_smoke.py's three timed
+    shapes: every row at 100 of 160 slots (the dense main path; the paged
+    case is the kernel phase's ragged main-path case), T=4096 full, and
+    h2o-danube's GQA window case at T=8192."""
+    rng = np.random.default_rng(2)
+    gen = torch.Generator(device=device).manual_seed(1)
+    dn = cs.DANUBE
+    bf = torch.bfloat16
+    T = cs.MAX_CONTEXT
+    q, k, v, _ = cs.dense_decode_case(rng, cs.B, cs.H, cs.H, cs.D, T, bf,
+                                      device)
+    at100 = torch.full((cs.B,), 100, dtype=torch.int32, device=device)
+    yield ("main path", (q, k, v, torch.arange(T, dtype=torch.int32,
+                                              device=device), at100, 0),
+           (*cs.decode_case(rng, cs.H, bf, device), 0))
+    for label, H_, K, D_, T, window in (
+            (f"T={cs.DA_LONG_T} full", cs.H, cs.H, cs.D, cs.DA_LONG_T, 0),
+            (f"GQA {dn['H']}/{dn['K']} D={dn['D']} T=8192 "
+             f"window={dn['window']}", dn["H"], dn["K"], dn["D"], 8192,
+             dn["window"])):
+        full = np.full(cs.B, T - 1, np.int32)
+        q, k, v, lens = cs.dense_decode_case(rng, cs.B, H_, K, D_, T, bf,
+                                             device, lens=full)
+        yield (label, (q, k, v, torch.arange(T, dtype=torch.int32,
+                                             device=device), lens, window),
+               (*cs.long_paged_case(gen, H_, K, D_, T // cs.BS, bf,
+                                    device), window))
+
+
+def decode_variants(libs, device, flush):
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import paged_attention as pa
+
+    mods = [importlib.import_module(f"repro_torch.kernels.{m}")
+            for m in ("decode_attention.decode_attention",
+                      "paged_attention.paged_attention")]
+    labels = sorted({label for label, _ in libs}, key=str)
+
+    @contextlib.contextmanager
+    def variant(label):
+        with contextlib.ExitStack() as stack:
+            if label == "NaN-filled output and scratch":
+                for mod in mods:
+                    stack.enter_context(_swap(mod, "unfilled",
+                                              contextlib.nullcontext))
+            elif label != "shipped":
+                for name in DECODE:
+                    stack.enter_context(library(name, libs[(label, name)]))
+            yield
+
+    order = ["shipped", *labels, "NaN-filled output and scratch", "shipped"]
+    for shape, dense, paged in decode_shapes(device):
+        q, k, v, pos, lens, window = dense
+        sdpa = cs.median_ms(lambda: cs.sdpa_decode(q, k, v, pos, lens,
+                                                   window), flush)
+        ref = {"dense": da.decode_attention(q, k, v, pos, lens,
+                                            window=window, tile=cs.BS),
+               "paged": pa.paged_decode_attention(*paged[:5],
+                                                  window=paged[5])}
+        runs = {
+            "dense": lambda: da.decode_attention(q, k, v, pos, lens,
+                                                 window=window, tile=cs.BS),
+            "paged": lambda: pa.paged_decode_attention(*paged[:5],
+                                                       window=paged[5])}
+        row = []
+        for label in order:
+            with variant(label):
+                for kind, run in runs.items():
+                    same = torch.equal(run(), ref[kind])
+                    ms = cs.median_ms(run, flush)
+                    row.append(f"{kind} {label} {ms:.4f}"
+                               f"{'' if same else ' (differs)'}")
+        bound = cs.dense_decode_bound(q, k, pos, lens, window)[0]
+        pbound = cs.decode_bound(paged[0], paged[1], paged[4], paged[5])[0]
+        print(f"decode bf16 {shape}, ms (bit-identical to the shipped "
+              f"kernel unless marked): " + "; ".join(row)
+              + f"; SDPA {sdpa:.4f}; bound dense {bound:.5f}, paged "
+              f"{pbound:.5f}", flush=True)
+        del dense, paged, ref, runs
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _swap(obj, attr, value):
+    saved = getattr(obj, attr)
+    setattr(obj, attr, value)
+    try:
+        yield
+    finally:
+        setattr(obj, attr, saved)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_variants: no CUDA device", file=sys.stderr)
@@ -258,11 +489,16 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}", flush=True)
+    decode = decode_variant_sources()
     libs = build({
         "flash_one_p_product": patched("flash_attention", ONE_P_PRODUCT),
         "flash_8_warps": patched("flash_attention", EIGHT_WARPS),
-        "branch_matmul_tiles": tile_harness()})
+        "branch_matmul_tiles": tile_harness(),
+        **{variant_lib(label, name): files
+           for (label, name), files in decode.items()}})
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    decode_variants({key: libs[variant_lib(*key)] for key in decode}, device,
+                    flush)
     flash_variants(libs, device, flush)
     gemm_variants(libs["branch_matmul_tiles"], device, flush)
     prefill_variants(libs, device)

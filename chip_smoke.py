@@ -7,35 +7,39 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 1. card: the GPU's name and power limit, from ``nvidia-smi``;
 2. build: the six CUDA kernels from ``src/repro_torch/csrc/`` (one
    ``nvcc`` each, in parallel);
-3. kernels: the paged kernels against their plain PyTorch versions on
-   the card at the serving path's shapes (B=8, H=K=32, D=80, block 16,
-   ragged lengths with 0 and a full row, unallocated table entries on the
-   scratch row), plus a GQA case (K=8) and a windowed case, in bf16 and
-   fp32 (tolerance fp32 2e-5, bf16 2e-2; pools after the append
-   bit-exact); ``branch_matmul`` against its plain version at the
-   planner path's two sites (G=6, M=512, K=2560, N=240 and G=6, M=512,
-   K=80, N=2560) in fp32 and bf16, and a ragged ``parallel_branches``
-   case (same tolerances; two launches bit-identical; per fp32 site,
-   whether the kernel equals ``torch.bmm`` bit for bit); median times by
-   CUDA events beside the bound and, for ``branch_matmul``, ``torch.bmm``;
-   ``decode_attention`` on the model's ``(B, T, K, D)`` cache at the dense
-   path's shape (B=8, H=K=32, D=80, T=160, tile 16) in bf16 and fp32, a
-   GQA + window case at h2o-danube-3-4b widths (32/8 heads, D=120,
-   window 4096, T=8192), a ring cache with permuted positions and
-   T=4096, and bit-identical to ``paged_decode_attention`` on the same
-   K/V laid into a block pool; ``flash_attention`` at the prefill shape
-   (B=2, 32 heads, D=80, S=2048, causal) in bf16 and fp32, the
-   h2o-danube window case (B=1, S=6144), a non-causal T > S case, a GQA
-   32/8 case at S = T = 1000 (off the 64-row tile) and rows with no
-   valid key (S=32, T=8, window 4, causal or not, bf16 and fp32: the
-   mean of V over all T keys), each launched twice and bit-identical —
-   times beside their bounds and one ``scaled_dot_product_attention``
-   call each; ``ssd_scan`` (fp32) against its plain version and the
-   sequential recurrence at rtol = atol = 2e-4 at the prefill shape
-   (b=2, H=32, S=2048, chunk 256, P=64, N=128), a long prompt (b=1,
-   S=8192) and an odd chunk with groups broadcast by stride (S = L =
-   100, G=2, strided operands), times beside the bound (no PyTorch call
-   computes the scan);
+3. kernels: the paged kernels against their plain PyTorch versions on the
+   card at the serving path's shapes (B=8, H=K=32, D=80, block 16, ragged
+   lengths with 0 and a full row, unallocated table entries on the scratch
+   row), plus a GQA case (K=8) and a windowed case, in bf16 and fp32
+   (tolerance fp32 2e-5, bf16 2e-2; pools after the append bit-exact),
+   each decode case also bit-identical through a table of 256 blocks, one
+   row alone and on a second launch, then a long context (T=4096) and
+   h2o-danube's GQA window case (T=8192), every row full, timed beside the
+   bound at the three shapes; ``branch_matmul`` against its plain version
+   at the planner path's two sites (G=6, M=512, K=2560, N=240 and G=6,
+   M=512, K=80, N=2560) in fp32 and bf16, and a ragged
+   ``parallel_branches`` case (same tolerances; two launches
+   bit-identical; per fp32 site, whether the kernel equals ``torch.bmm``
+   bit for bit); median times by CUDA events beside the bound and, for
+   ``branch_matmul``, ``torch.bmm``; ``decode_attention`` on the model's
+   ``(B, T, K, D)`` cache at the dense path's shape (B=8, H=K=32, D=80,
+   T=160, tile 16) in bf16 and fp32, a GQA + window case at
+   h2o-danube-3-4b widths (32/8 heads, D=120, window 4096, T=8192), a ring
+   cache with permuted positions and T=4096, and bit-identical to
+   ``paged_decode_attention`` on the same K/V laid into a block pool
+   (windows 0 and 37), to itself over a cache of 4096 slots (empty past
+   cache_len), one row alone and a second launch; ``flash_attention`` at
+   the prefill shape (B=2, 32 heads, D=80, S=2048, causal) in bf16 and
+   fp32, the h2o-danube window case (B=1, S=6144), a non-causal T > S
+   case, a GQA 32/8 case at S = T = 1000 (off the 64-row tile) and rows
+   with no valid key (S=32, T=8, window 4, causal or not, bf16 and fp32:
+   the mean of V over all T keys), each launched twice and bit-identical —
+   times beside their bounds and one ``scaled_dot_product_attention`` call
+   each; ``ssd_scan`` (fp32) against its plain version and the sequential
+   recurrence at rtol = atol = 2e-4 at the prefill shape (b=2, H=32,
+   S=2048, chunk 256, P=64, N=128), a long prompt (b=1, S=8192) and an odd
+   chunk with groups broadcast by stride (S = L = 100, G=2, strided
+   operands), times beside the bound (no PyTorch call computes the scan);
 4. serve: ``stablelm-3b`` at full width (32 layers, d_model 2560, bf16,
    random weights from ``torch.Generator`` seed 0) through
    ``ContinuousEngine`` with the paged pool, prefix sharing and megastep
@@ -59,8 +63,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    logits against scalar token-by-token decode at 2e-4);
 6. reference: the reduced fp32 model on the card against the same
    weights on the CPU (plain versions), a few decode steps, fp32 2e-5;
-   then where one full-width decode step spends its time (host clock,
-   ``torch.profiler``);
+   then where one full-width decode step spends its time, on the dense
+   cache and the paged pool (host clock, ``torch.profiler``; device
+   kernels per decode-attention wrapper call);
 7. CLI: ``repro_torch.launch.serve.serve("stablelm-3b",
    engine_mode="continuous")`` on the card, then the entry point with
    ``--engine round`` and with ``--no-paged``;
@@ -255,20 +260,67 @@ def decode_case(rng, K, dtype, device):
 
 def decode_bound(q, k_pool, lens, window):
     """Bytes the function must move: q, the valid K/V positions of each
-    row, its table entries and length, the output."""
-    K = k_pool.shape[2]
+    row, the table entries of the blocks that hold them, the lengths, the
+    output."""
+    B_, H_, D_ = q.shape
+    bs, K = k_pool.shape[1], k_pool.shape[2]
     item = q.element_size()
-    n_tok = lens.long() + 1
-    if window > 0:
-        n_tok = n_tok.clamp(max=window)
-    n_tok = int(n_tok.sum())
-    n_blk = int((lens.long() // BS + 1).sum())
-    nbytes = (2 * q.numel() * item + 2 * n_tok * K * D * item
-              + 4 * n_blk + 4 * B)
-    flops = 4 * n_tok * (H // K) * K * D
+    hi = lens.long()
+    lo = (hi - window + 1).clamp(min=0) if window > 0 else hi * 0
+    n_tok = int((hi - lo + 1).sum())
+    n_blk = int((hi // bs - lo // bs + 1).sum())
+    nbytes = (2 * q.numel() * item + 2 * n_tok * K * D_ * item
+              + 4 * n_blk + 4 * B_)
+    flops = 4 * n_tok * H_ * D_
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def long_paged_case(gen, H_, K, D_, bpr, dtype, device):
+    """q and pools of B rows with ``bpr`` blocks each, every row full
+    (cache_len = bpr * bs - 1); values from the card's generator."""
+    nb = B * bpr
+    k_pool, v_pool = (torch.randn(nb + 1, BS, K, D_, generator=gen,
+                                  device=device, dtype=dtype)
+                      for _ in range(2))
+    q = torch.randn(B, H_, D_, generator=gen, device=device, dtype=dtype)
+    tables = torch.randperm(nb, generator=gen, device=device).reshape(
+        B, bpr).int()
+    lens = torch.full((B,), bpr * BS - 1, dtype=torch.int32, device=device)
+    return q, k_pool, v_pool, tables, lens
+
+
+def identical(name, label, a, b):
+    same = torch.equal(a, b)
+    log(f"{name} {label}: {'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError(f"{name}: {label} not bit-identical")
+
+
+def paged_identities(pa, q, kp, vp, tables, lens, window, rng):
+    """The same rows through a table of 256 blocks (the extra entries on
+    random pool rows, past every cache_len), one row alone, and a second
+    launch: the same bits."""
+    dt = str(q.dtype)[6:]
+    tag = f"{dt} K={kp.shape[2]} window={window}"
+    got = pa.paged_decode_attention(q, kp, vp, tables, lens, window=window)
+    extra = torch.tensor(rng.integers(0, kp.shape[0], (B, 256 - BPR)),
+                         dtype=torch.int32, device=q.device)
+    wide = torch.cat([tables, extra], 1)
+    identical("paged_decode_attention", f"{tag}, bpr {BPR} vs 256", got,
+              pa.paged_decode_attention(q, kp, vp, wide, lens,
+                                        window=window))
+    identical("paged_decode_attention", f"{tag}, two launches", got,
+              pa.paged_decode_attention(q, kp, vp, tables, lens,
+                                        window=window))
+    for b in (0, 3, B - 1):
+        one = pa.paged_decode_attention(q[b:b + 1], kp, vp,
+                                        tables[b:b + 1], lens[b:b + 1],
+                                        window=window)
+        identical("paged_decode_attention",
+                  f"{tag}, row {b} alone vs in the batch of {B}", one[0],
+                  got[b])
 
 
 def append_case(rng, dtype, device):
@@ -292,6 +344,18 @@ def append_case(rng, dtype, device):
     return k_pool, v_pool, k_new, v_new, tables, lens, n_valid
 
 
+def paged_timing(pa, label, q, kp, vp, tables, lens, window, flush):
+    t = dict(ms=median_ms(lambda: pa.paged_decode_attention(
+                 q, kp, vp, tables, lens, window=window), flush),
+             plain_ms=median_ms(lambda: pa.paged_decode_attention_plain(
+                 q, kp, vp, tables, lens, window), flush),
+             bound=decode_bound(q, kp, lens, window))
+    log(f"paged_decode_attention {label}: kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms "
+        f"({t['bound'][1]})")
+    return t
+
+
 def kernel_phase(pa, device):
     rng = np.random.default_rng(0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
@@ -313,14 +377,38 @@ def kernel_phase(pa, device):
                                      "with its plain version")
             err["paged_decode_attention"] = max(
                 err["paged_decode_attention"], e)
+            paged_identities(pa, q, kp, vp, tables, lens, window, rng)
             if dtype == torch.bfloat16 and K == H and window == 0:
-                timing["paged_decode_attention"] = dict(
-                    ms=median_ms(lambda: pa.paged_decode_attention(
-                        q, kp, vp, tables, lens), flush),
-                    plain_ms=median_ms(
-                        lambda: pa.paged_decode_attention_plain(
-                            q, kp, vp, tables, lens), flush),
-                    bound=decode_bound(q, kp, lens, 0))
+                timing["paged_decode_attention"] = paged_timing(
+                    pa, "main path", q, kp, vp, tables, lens, 0, flush)
+        # a long context and h2o-danube widths, every row full
+        gen = torch.Generator(device=device).manual_seed(1)
+        dn = DANUBE
+        for label, H_, K, D_, bpr, window in (
+                (f"T={DA_LONG_T} full", H, H, D, DA_LONG_T // BS, 0),
+                (f"GQA {dn['H']}/{dn['K']} D={dn['D']} T=8192 "
+                 f"window={dn['window']}", dn["H"], dn["K"], dn["D"],
+                 8192 // BS, dn["window"])):
+            q, kp, vp, tables, lens = long_paged_case(gen, H_, K, D_, bpr,
+                                                      dtype, device)
+            got = pa.paged_decode_attention(q, kp, vp, tables, lens,
+                                            window=window)
+            want = pa.paged_decode_attention_plain(q, kp, vp, tables, lens,
+                                                   window)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            log(f"paged_decode_attention {str(dtype)[6:]} {label}: max abs "
+                f"err {e:.3e} (tol {TOL[dtype]})")
+            if not e <= TOL[dtype]:
+                raise AssertionError("paged_decode_attention disagrees "
+                                     "with its plain version")
+            err["paged_decode_attention"] = max(
+                err["paged_decode_attention"], e)
+            if dtype == torch.bfloat16:
+                paged_timing(pa, label, q, kp, vp, tables, lens, window,
+                             flush)
+            del q, kp, vp, got, want
+            torch.cuda.empty_cache()
         k1, v1, kn, vn, tables, lens, nv = append_case(rng, dtype, device)
         k2, v2 = k1.clone(), v1.clone()
         pa.paged_append(k1, v1, kn, vn, tables, lens, nv)
@@ -491,15 +579,34 @@ def attention_phase(pa, da, fa, device):
             pool[tables.long().reshape(-1)] = c.transpose(1, 2).reshape(
                 B * BPR, BS, H, D)
             pools.append(pool)
-        paged = pa.paged_decode_attention(q, *pools, tables, lens)
-        torch.cuda.synchronize()
-        same = torch.equal(got, paged)
-        log(f"decode_attention {str(dtype)[6:]} tile={BS}, pos=arange vs "
-            f"paged_decode_attention on the same K/V: "
-            f"{'bit-identical' if same else 'DIFFER'}")
-        if not same:
-            raise AssertionError("decode_attention is not bit-identical "
-                                 "to paged_decode_attention")
+        dt = str(dtype)[6:]
+        # the same rows over a cache of DA_LONG_T slots: empty past
+        # cache_len, as the round engine's wider rounds give
+        wide = [torch.cat([c.transpose(1, 2), torch.randn(
+                    B, DA_LONG_T - T, H, D, dtype=dtype, device=device)],
+                          1).transpose(1, 2) for c in (k, v)]
+        wide_pos = torch.arange(DA_LONG_T, dtype=torch.int32, device=device)
+        for window in (0, 37):
+            tag = f"{dt} window={window}"
+            got = da.decode_attention(q, k, v, arange, lens, window=window,
+                                      tile=BS)
+            identical("decode_attention", f"{tag} tile={BS}, pos=arange vs "
+                      f"paged_decode_attention on the same K/V", got,
+                      pa.paged_decode_attention(q, *pools, tables, lens,
+                                                window=window))
+            identical("decode_attention", f"{tag}, T={T} vs T={DA_LONG_T}",
+                      got, da.decode_attention(q, *wide, wide_pos, lens,
+                                               window=window, tile=BS))
+            identical("decode_attention", f"{tag}, two launches", got,
+                      da.decode_attention(q, k, v, arange, lens,
+                                          window=window, tile=BS))
+            for b in (0, 3, B - 1):
+                one = da.decode_attention(q[b:b + 1], k[b:b + 1],
+                                          v[b:b + 1], arange, lens[b:b + 1],
+                                          window=window, tile=BS)
+                identical("decode_attention", f"{tag}, row {b} alone vs in "
+                          f"the batch of {B}", one[0], got[b])
+        del wide
         if dtype == torch.bfloat16:
             at100 = torch.full((B,), 100, dtype=torch.int32, device=device)
             dec("main path, every row at 100", q, k, v, arange, at100, 0,
@@ -909,11 +1016,22 @@ def prefill_phase(api, params, kern, name, patch, xcheck, device,
     return launched
 
 
-def device_profile(label, fn, n, bound):
+KERNEL_FAMILIES = (                # (substring of the kernel name, family)
+    ("paged_decode", "paged_decode_attention"),
+    ("dense_decode", "decode_attention"),   # the splits merge inside it
+    ("paged_append", "paged_append"),
+    ("ssd_scan", "ssd_scan"),
+)
+
+
+def device_profile(label, fn, n, bound, wrappers=()):
     """Where one call of ``fn`` spends its time: host+device wall time by
     the host clock, and the card's busy time by ``torch.profiler`` (the
     sum of its kernels, which run in order on one stream), split by
-    kernel family.  ``bound`` = (ms, what) bounds the call from below."""
+    kernel family.  ``bound`` = (ms, what) bounds the call from below.
+    ``wrappers``: (family, launches dict) pairs; the dict's count under
+    the family's name (its wrapper calls in the profiled window) is set
+    beside the family's device kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -926,31 +1044,35 @@ def device_profile(label, fn, n, bound):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n * 1e3
+        before = {fam: d[fam] for fam, d in wrappers}
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
     by_family: "dict[str, float]" = {}
+    count: "dict[str, int]" = {}
     launches = 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         name = e.name.lower()
-        if "paged_decode" in name:
-            family = "paged_decode_attention"
-        elif "paged_append" in name:
-            family = "paged_append"
-        elif "ssd_scan" in name:
-            family = "ssd_scan"
-        elif any(k in name for k in ("gemm", "gemv", "xmma", "cutlass",
-                                     "nvjet", "splitk")):
-            family = "matmul"
-        else:
-            family = "other (elementwise, norms, rope, conv, sampling)"
+        family = next((fam for key, fam in KERNEL_FAMILIES if key in name),
+                      None)
+        if family is None:
+            family = ("matmul" if any(k in name for k in (
+                "gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk"))
+                else "other (elementwise, norms, rope, conv, sampling)")
         by_family[family] = (by_family.get(family, 0.0)
                              + e.time_range.elapsed_us() / 1e3 / n)
+        count[family] = count.get(family, 0) + 1
         launches += 1
+    for fam, d in wrappers:
+        calls = d[fam] - before[fam]
+        kernels = count.get(fam, 0)
+        if calls:
+            log(f"step: {label}: {fam}: {kernels} device kernels for "
+                f"{calls} wrapper calls ({kernels / calls:.2f} a call)")
     busy = sum(by_family.values())
     if busy == 0.0:
         log(f"step: {label}: wall {wall:.3f} ms; device time not measured "
@@ -964,10 +1086,25 @@ def device_profile(label, fn, n, bound):
         log(f"step:   {family}: {ms:.3f} ms ({ms / busy:.1%} of busy)")
 
 
-def step_profile(api, params, device):
+def step_profile(api, params, device, wrappers=()):
     """One full-width ``decode_fn`` call (B=8, every row at position 100)
-    through :func:`device_profile`; the weight bytes over the memory rate
-    bound the step from below."""
+    through :func:`device_profile`, on the paged pool and, for a model
+    that attends, on the dense cache (MAX_CONTEXT slots a row); the
+    weight bytes over the memory rate bound the step from below."""
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    bound = (weight_bytes / HBM_BYTES_PER_S * 1e3, "weight-read")
+    if api.cfg.num_heads:
+        dense = api.init_caches(B, MAX_CONTEXT, tile=BS)
+        at100 = {"tokens": torch.zeros(B, 1, dtype=torch.int32,
+                                       device=device),
+                 "cache_len": torch.full((B,), 100, dtype=torch.int32,
+                                         device=device)}
+        device_profile(f"full-width {api.cfg.name} dense decode_fn (B=8, "
+                       f"position 100, {MAX_CONTEXT} slots)",
+                       lambda: api.decode_fn(params, dense, at100), 5,
+                       bound, wrappers)
+        del dense
     caches = api.init_paged_caches(B, B * BPR, BS)
     batch = {"tokens": torch.zeros(B, 1, dtype=torch.int32, device=device),
              "cache_len": torch.full((B,), 100, dtype=torch.int32,
@@ -975,11 +1112,9 @@ def step_profile(api, params, device):
              "active": torch.ones(B, dtype=torch.bool, device=device),
              "block_tables": torch.arange(B * BPR, dtype=torch.int32,
                                           device=device).reshape(B, BPR)}
-    weight_bytes = sum(p.numel() * p.element_size()
-                       for p in params.parameters())
     device_profile(f"full-width {api.cfg.name} decode_fn (B=8, position "
                    f"100)", lambda: api.decode_fn(params, caches, batch), 5,
-                   (weight_bytes / HBM_BYTES_PER_S * 1e3, "weight-read"))
+                   bound, wrappers)
 
 
 def reference_phase(device):
@@ -1759,7 +1894,9 @@ def main() -> int:
         ("repro_torch.kernels.flash_attention.flash_attention",
          "flash_attention", fa.flash_attention_plain), XCHECK_PROMPT,
         device)
-    step_profile(api, params, device)
+    step_profile(api, params, device, (
+        ("paged_decode_attention", pa.launches),
+        ("decode_attention", da.launches)))
     del api, params
     gc.collect()
     torch.cuda.empty_cache()

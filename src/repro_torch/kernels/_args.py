@@ -42,6 +42,32 @@ def check_cuda(name: str, tensors: dict, dtype: torch.dtype) -> None:
                         f"{dtype}")
 
 
+def aligned16(tensors, *extents) -> int:
+    """1 if every tensor's data and every extent (strides, a row length),
+    in elements, lie on 16 bytes: the kernels then load 16-byte vectors,
+    else element by element."""
+    item = tensors[0].element_size()
+    return int(all(t.data_ptr() % 16 == 0 for t in tensors)
+               and all(e * item % 16 == 0 for e in extents))
+
+
+#: per (device, stream): the decode kernels' arrival counters, zero
+#: between launches (each launch leaves them as it found them)
+_counters: dict = {}
+
+
+def arrival_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zero int32 counters for a launch on ``device``'s
+    current stream.  Launches on one stream run in order, so they share
+    one buffer; another stream gets its own."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
+
+
 @contextlib.contextmanager
 def unfilled():
     """Allocations inside skip deterministic mode's NaN fill of new memory

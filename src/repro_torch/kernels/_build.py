@@ -33,13 +33,12 @@ _L = ctypes.c_longlong
 # C signature of every kernel entry point: argtypes, so pointers and the
 # stream go through as 64-bit values (ctypes would pass ints as 32-bit)
 SIGNATURES = {
-    "paged_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _F, _I, _P),
+    "paged_decode_attention": (_P,) * 8 + (_I,) * 7 + (_F, _I, _I, _P),
     "paged_append": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _I, _P),
     "branch_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _L, _L, _L, _I, _F, _I, _P),
+    "decode_attention": (_P,) * 8 + (_I,) * 6 + (_L,) * 3
+    + (_I, _F, _I, _I, _P),
     "flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _F, _I, _P),
     "ssd_scan": (_P, _P, _P, _P, _P, _P) + (_I,) * 7 + (_L,) * 12 + (_P,),

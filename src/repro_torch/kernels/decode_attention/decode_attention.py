@@ -12,11 +12,13 @@ slot ``t`` (-1 = empty); ring caches hold them out of order.
 slot ``t`` of row ``b`` is valid iff ``0 <= pos[t] <= cache_len[b]``
 and, with a window ``w``, ``pos[t] > cache_len[b] - w``.
 
-``tile`` sets the kernel's reduction order: it walks the slots in tiles
-of ``tile``, with the per-tile arithmetic of the paged kernel
-(``csrc/decode_tile.cuh``).  With ``pos = arange(T)`` and ``tile`` equal
-to a paged pool's block size, the result is bit-identical to
-``paged_decode_attention`` on the same K/V.
+``tile`` sets the kernel's reduction order: it splits the slots over
+blocks, a fixed number of tiles of ``tile`` slots each, with the
+arithmetic of the paged kernel (``csrc/decode_tile.cuh``).  With ``pos =
+arange(T)`` and ``tile`` equal to a paged pool's block size, the result
+is bit-identical to ``paged_decode_attention`` on the same K/V; a row's
+result depends neither on the other rows nor on T past its last valid
+slot.
 
 The wrapper checks its arguments, then runs :func:`decode_attention_plain`
 when the tensors lie on the CPU, and otherwise launches the kernel on
@@ -29,7 +31,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._args import KERNEL_DTYPES, NEG_INF, check_cuda, rows
+from .._args import (KERNEL_DTYPES, NEG_INF, aligned16, arrival_counters,
+                     check_cuda, rows, unfilled)
 from .._build import load
 
 #: kernel launches since the last :func:`reset_launches`
@@ -97,13 +100,22 @@ def decode_attention(q, k, v, pos, cache_len, window: int = 0,
         raise ValueError(f"decode_attention: k and v need one set of "
                          f"strides with unit stride over D, got "
                          f"{k.stride()} / {v.stride()}")
-    out = torch.empty_like(q)
+    if D > 256:
+        raise ValueError(f"decode_attention: head dim {D} > 256")
     lib = load("decode_attention")
+    n_split = lib.decode_splits(D, H // K, KERNEL_DTYPES[q.dtype],
+                                -(-T // int(tile)))
+    with unfilled():
+        out = torch.empty_like(q)
+        scratch = torch.empty(B * H * n_split * (D + 2) if n_split > 1
+                              else 0, dtype=torch.float32, device=q.device)
     rc = lib.decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), B, H, K, D, T, int(tile),
-        k.stride(0), k.stride(1), k.stride(2), int(window),
+        lens.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        arrival_counters(q.device, B * H).data_ptr(), B, H, K, D, T,
+        int(tile), k.stride(0), k.stride(1), k.stride(2), int(window),
         float(np.float32(1.0 / np.sqrt(D))), KERNEL_DTYPES[q.dtype],
+        aligned16((q, k, v), D, *k.stride()[:3]),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention: launch failed, CUDA error "

@@ -26,7 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._args import KERNEL_DTYPES, NEG_INF, check_cuda, rows
+from .._args import (KERNEL_DTYPES, NEG_INF, aligned16, arrival_counters,
+                     check_cuda, rows, unfilled)
 from .._build import load
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
@@ -100,16 +101,22 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, cache_len, *,
     check_cuda("paged_decode_attention",
                 dict(q=q, k_pool=k_pool, v_pool=v_pool,
                      block_tables=block_tables, cache_len=lens), q.dtype)
-    if H // K > 128:
-        raise ValueError("paged_decode_attention: at most 128 query heads "
-                         "per KV head")
-    out = torch.empty_like(q)
+    if D > 256:
+        raise ValueError(f"paged_decode_attention: head dim {D} > 256")
+    bpr = block_tables.shape[1]
     lib = load("paged_decode_attention")
+    n_split = lib.decode_splits(D, H // K, KERNEL_DTYPES[q.dtype], bpr)
+    with unfilled():
+        out = torch.empty_like(q)
+        scratch = torch.empty(B * H * n_split * (D + 2) if n_split > 1
+                              else 0, dtype=torch.float32, device=q.device)
     rc = lib.paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        B, H, K, D, bs, block_tables.shape[1], int(window),
+        scratch.data_ptr(), arrival_counters(q.device, B * H).data_ptr(),
+        B, H, K, D, bs, bpr, int(window),
         float(np.float32(1.0 / np.sqrt(D))), KERNEL_DTYPES[q.dtype],
+        aligned16((q, k_pool, v_pool), D),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention: launch failed, CUDA "

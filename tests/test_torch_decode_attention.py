@@ -9,7 +9,9 @@ slot order, plus the full-width head_dim 80.  The port receives K/V as
 the model holds them — ``(B, T, K, D)`` storage seen through a
 ``(B, K, T, D)`` view.  Tolerances are the JAX suite's: fp32 2e-5, bf16
 2e-2.  The ``cuda``-marked cases hold the CUDA kernel against its plain
-version and against the paged kernel on the card and skip without one.
+version and against the paged kernel on the card, and show that its bits
+do not depend on the cache width, the batch or the launch; they skip
+without a card.
 """
 
 import pytest
@@ -241,3 +243,39 @@ def test_decode_kernel_bit_identical_to_paged(cuda, dtype):
                                        window=window)
         torch.cuda.synchronize()
         assert torch.equal(dense, paged), window
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K,window", [(8, 0), (8, 37), (2, 37)])
+def test_decode_kernel_bits_independent_of_width_batch_launch(cuda, dtype,
+                                                              K, window):
+    """The kernel splits a row's slots over blocks and merges the splits
+    in a fixed order, so the same rows give the same bits over a cache of
+    160 slots and of 4096 (empty past cache_len, as the round engine's
+    per-round widths give), one row alone and in a batch of 8, and on a
+    second launch."""
+    B, H, D, T, wide = 8, 8, 80, 160, 4096
+    q, k, v = _inputs(11, B, H, K, wide, D)
+    lens = np.random.default_rng(12).integers(0, T, B).astype(np.int32)
+    lens[0], lens[1] = 0, T - 1
+    tq = torch.tensor(q).to(cuda, TORCH_DT[dtype])
+    tl = torch.tensor(lens, device=cuda)
+    caches = {}
+    for n in (T, wide):
+        caches[n] = (_port(k[:, :, :n], dtype, cuda),
+                     _port(v[:, :, :n], dtype, cuda),
+                     torch.arange(n, dtype=torch.int32, device=cuda))
+    got = decode_attention(tq, *caches[T], tl, window=window)
+    torch.testing.assert_close(
+        got.float(), decode_attention_plain(tq, *caches[T], tl, window)
+        .float(), **TOL[dtype])
+    assert torch.equal(got, decode_attention(tq, *caches[wide], tl,
+                                             window=window))
+    assert torch.equal(got, decode_attention(tq, *caches[T], tl,
+                                             window=window))
+    kn, vn, pos = caches[T]
+    for b in (0, 1, 5):
+        one = decode_attention(tq[b:b + 1], kn[b:b + 1], vn[b:b + 1], pos,
+                               tl[b:b + 1], window=window)
+        assert torch.equal(one[0], got[b]), b

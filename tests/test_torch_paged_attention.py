@@ -8,7 +8,8 @@ ragged lengths (0 and a full row included) and table entries pointing at
 the scratch row.  Tolerances are the JAX suite's
 (``tests/test_paged_kernels.py``): fp32 2e-5, bf16 2e-2; the append is
 exact.  The ``cuda``-marked cases hold each CUDA kernel against its plain
-version on the card and skip without one.
+version on the card, and show that the decode kernel's bits do not depend
+on the table's width, the batch or the launch; they skip without one.
 """
 
 import pytest
@@ -168,6 +169,8 @@ def test_wrappers_reject_bad_shapes():
 @pytest.mark.parametrize("B,H,K,D,bs,bpr,window", DECODE_CASES + [
     (8, 32, 32, 80, 16, 10, 0),    # the full-width main path
     (8, 32, 8, 80, 16, 10, 0),     # GQA at full width
+    (8, 32, 32, 80, 16, 256, 0),   # a long context, T = 4096
+    (8, 32, 8, 120, 16, 512, 4096),  # h2o-danube widths, T = 8192
 ])
 def test_paged_decode_kernel_matches_plain(cuda, dtype, B, H, K, D, bs,
                                            bpr, window):
@@ -181,6 +184,40 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, B, H, K, D, bs,
     torch.cuda.synchronize()
     assert launches["paged_decode_attention"] == before + 1
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K,window", [(32, 0), (32, 37), (8, 37)])
+def test_paged_decode_kernel_bits_independent_of_width_batch_launch(
+        cuda, dtype, K, window):
+    """The kernel splits a row's table over blocks and merges the splits
+    in a fixed order, so the same rows give the same bits through a table
+    of 10 blocks and of 256 (entries past cache_len on other blocks), one
+    row alone and in a batch of 8, and on a second launch."""
+    B, H, D, bs, bpr, wide = 8, 32, 80, 16, 10, 256
+    q, kp, vp, tables, lens = _decode_inputs(5, B, H, K, D, bs, bpr)
+    rng = np.random.default_rng(6)
+    nb = kp.shape[0] - 1
+    extra = rng.integers(0, nb + 1, (B, wide - bpr)).astype(np.int32)
+    q, kp, vp = (torch.tensor(a).to(cuda, TORCH_DT[dtype])
+                 for a in (q, kp, vp))
+    narrow = torch.tensor(tables, device=cuda)
+    broad = torch.tensor(np.concatenate([tables, extra], 1), device=cuda)
+    tl = torch.tensor(lens, device=cuda)
+    got = paged_decode_attention(q, kp, vp, narrow, tl, window=window)
+    torch.testing.assert_close(
+        got.float(), paged_decode_attention_plain(q, kp, vp, narrow, tl,
+                                                  window).float(),
+        **TOL[dtype])
+    assert torch.equal(got, paged_decode_attention(q, kp, vp, broad, tl,
+                                                   window=window))
+    assert torch.equal(got, paged_decode_attention(q, kp, vp, narrow, tl,
+                                                   window=window))
+    for b in (0, 3, B - 1):
+        one = paged_decode_attention(q[b:b + 1], kp, vp, narrow[b:b + 1],
+                                     tl[b:b + 1], window=window)
+        assert torch.equal(one[0], got[b]), b
 
 
 @pytest.mark.cuda

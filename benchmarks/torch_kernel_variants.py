@@ -34,7 +34,23 @@ this one card.
   ``chip_smoke.py`` times (the dense path's main shape, T=4096,
   h2o-danube's GQA window case at T=8192), beside SDPA, and whether each
   variant equals the shipped kernel bit for bit (it must, except another
-  split length or chunk order).
+  split length or chunk order);
+- ``ssd_scan`` (``SSD_VARIANTS``): the state pass run by the last
+  chunk-state block of each (batch, head) instead of a launch of its own,
+  32-row query tiles instead of 64, d_state slices of 16, 32 or 128
+  columns (of the state read in) instead of 64, one ring stage (load,
+  wait, compute) or three instead of two, and the output kernel's
+  registers capped for 2 blocks an SM instead of 3, at the three
+  shapes
+  ``chip_smoke.py`` times (the mamba2-370m prefill shape, a long prompt at
+  b=1, S=8192, and jamba's N=16, H=128), beside the plain version, and
+  whether each equals the shipped kernel bit for bit (each must: no
+  variant changes a summation order); and the shipped call's device time
+  split over its four kernels (``torch.profiler``);
+- ``paged_append`` at the decode shape (``chip_smoke.append_case``, bf16):
+  16-byte vectors where the pools and the rows lie on 16 bytes instead of
+  one element a thread, and blocks of 32 or 128 threads instead of 64,
+  pools bit-identical.
 """
 
 from __future__ import annotations
@@ -43,6 +59,7 @@ import contextlib
 import ctypes
 import importlib
 import os
+import re
 import subprocess
 import sys
 
@@ -166,6 +183,75 @@ COMBINE_LAUNCH = ((
     return static_cast<int>(cudaGetLastError());
   });"""),)
 DECODE = ("decode_attention", "paged_decode_attention")
+
+# ssd_scan: each choice of the shipped design undone on its own
+# the state pass run by the last chunk-state block of each (batch, head)
+# to arrive, on counters in device memory that each launch leaves at zero,
+# instead of a launch of its own
+FUSED_PASS = (
+    ("// grid (nc * head-dim tiles, H, b).  MN: d_state rows per thread",
+     "__device__ int arrivals[1 << 16];\n\n"
+     "// grid (nc * head-dim tiles, H, b).  MN: d_state rows per thread"),
+    ("""        if (p < P) sc[(long long)n * P + p] = acc[m][q];
+      }
+    }
+  }
+}
+""", """        if (p < P) sc[(long long)n * P + p] = acc[m][q];
+      }
+    }
+  }
+  if (g.nc == 1) return;
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* counter = arrivals + b * g.H + h;
+    last = atomicAdd(counter, 1) == g.nc * npt - 1;
+    if (last) *counter = 0;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (g.N * g.P % 4 == 0)
+    state_pass<float4>(g, b, h, tid, kThreads);
+  else
+    state_pass<float>(g, b, h, tid, kThreads);
+}
+"""),
+    ("  if (g.nc > 1) {", "  if (false) {"),
+)
+SSD_VARIANTS = {
+    "state pass by the last state block": FUSED_PASS,
+    "query tile 32": (("constexpr int TQ = 64;", "constexpr int TQ = 32;"),),
+    "N slice 16": (("constexpr int NS = 64;", "constexpr int NS = 16;"),),
+    "N slice 32": (("constexpr int NS = 64;", "constexpr int NS = 32;"),),
+    "N slice 128": (("constexpr int NS = 64;", "constexpr int NS = 128;"),),
+    "one ring stage": (("constexpr int kStages = 2;",
+                        "constexpr int kStages = 1;"),),
+    "three ring stages": (("constexpr int kStages = 2;",
+                           "constexpr int kStages = 3;"),),
+    "registers for 2 output blocks an SM": (
+        ("constexpr int kMinBlocks = 3;", "constexpr int kMinBlocks = 2;"),),
+}
+# paged_append: a 16-byte vector a thread where everything lies on 16
+# bytes; other block sizes
+APPEND_VARIANTS = {
+    "16-byte vectors": (("""
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)""", """
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t row = (size_t)KD * (dtype == 0 ? 4 : 2);
+  if (((size_t)k_pool | (size_t)v_pool | (size_t)k_new | (size_t)v_new
+       | row) % 16 == 0)
+    return launch<uint4>(k_pool, v_pool, k_new, v_new, tb, ln, nv, B, C,
+                         (int)(row / 16), bs, bpr, scratch, s);
+  if (dtype == 0)"""),),
+    "32 threads": (("constexpr int kThreads = 64;",
+                    "constexpr int kThreads = 32;"),),
+    "128 threads": (("constexpr int kThreads = 64;",
+                     "constexpr int kThreads = 128;"),),
+}
 
 
 def patched(name, patches, suffix=".cu"):
@@ -466,6 +552,91 @@ def decode_variants(libs, device, flush):
         torch.cuda.empty_cache()
 
 
+def device_split(fn, n=20):
+    """Mean device microseconds per call of ``fn``, by kernel name, from
+    ``torch.profiler`` over n calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            m = re.search(r"(\w+)_kernel\b", e.name)
+            name = m.group(1) if m else e.name
+            split[name] = split.get(name, 0.0) + e.time_range.elapsed_us() / n
+    return split
+
+
+def ssd_variants(libs, device, flush):
+    """Every ssd_scan variant beside the shipped kernel, in turns (shipped
+    first and last), at chip_smoke.py's three timed shapes; and the
+    shipped call's device time split by kernel."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    rng = np.random.default_rng(4)
+    order = ["shipped", *SSD_VARIANTS, "shipped"]
+    for label, b, S, H, G, L, N, strided in cs.SSD_CASES:
+        if label.startswith("odd"):
+            continue
+        args = cs.ssd_inputs(rng, b, S, H, G, N, device, strided)
+        ref = ss.ssd_scan(*args, L)
+        row = []
+        for name in order:
+            ctx = (contextlib.nullcontext() if name == "shipped"
+                   else library("ssd_scan", libs[variant_lib(name,
+                                                             "ssd_scan")]))
+            with ctx:
+                same = torch.equal(ss.ssd_scan(*args, L), ref)
+                ms = cs.median_ms(lambda: ss.ssd_scan(*args, L), flush)
+            row.append(f"{name} {ms:.4f}{'' if same else ' (differs)'}")
+        plain = cs.median_ms(lambda: ss.ssd_scan_plain(*args, L), flush)
+        print(f"ssd_scan {label} b={b} S={S} H={H} L={L} P={cs.SSD_P} N={N},"
+              f" ms (bit-identical to the shipped kernel unless marked): "
+              + "; ".join(row) + f"; plain {plain:.4f}; bound "
+              f"{cs.ssd_bound(b, S, H, G, N)[0]:.5f}", flush=True)
+        split = device_split(lambda: ss.ssd_scan(*args, L))
+        print(f"ssd_scan {label}: device us per call by kernel (profiler, "
+              f"L2 warm): " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in split.items()),
+              flush=True)
+        del args, ref
+        torch.cuda.empty_cache()
+
+
+def append_variants(libs, device, flush):
+    """paged_append at the decode shape (bf16), each variant beside the
+    shipped kernel, pools compared bit for bit."""
+    from repro_torch.kernels import paged_attention as pa
+
+    rng = np.random.default_rng(0)
+    k1, v1, kn, vn, tables, lens, nv = cs.append_case(rng, torch.bfloat16,
+                                                      device)
+    want = [k1.clone(), v1.clone()]
+    pa.paged_append(*want, kn, vn, tables, lens, nv)
+    row = []
+    for name in ["shipped", *APPEND_VARIANTS, "shipped"]:
+        ctx = (contextlib.nullcontext() if name == "shipped"
+               else library("paged_append",
+                            libs[variant_lib(name, "paged_append")]))
+        with ctx:
+            got = [k1.clone(), v1.clone()]
+            pa.paged_append(*got, kn, vn, tables, lens, nv)
+            same = torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+            ms = cs.median_ms(lambda: pa.paged_append(
+                *got, kn, vn, tables, lens, nv), flush)
+        row.append(f"{name} {ms:.4f}{'' if same else ' (differs)'}")
+    print(f"paged_append bf16 B={cs.B} C=1 K={cs.H} D={cs.D}, ms (pools "
+          f"bit-identical to the shipped kernel's unless marked): "
+          + "; ".join(row), flush=True)
+
+
 @contextlib.contextmanager
 def _swap(obj, attr, value):
     saved = getattr(obj, attr)
@@ -495,8 +666,14 @@ def main() -> int:
         "flash_8_warps": patched("flash_attention", EIGHT_WARPS),
         "branch_matmul_tiles": tile_harness(),
         **{variant_lib(label, name): files
-           for (label, name), files in decode.items()}})
+           for (label, name), files in decode.items()},
+        **{variant_lib(label, name): patched(name, patches)
+           for name, variants in (("ssd_scan", SSD_VARIANTS),
+                                  ("paged_append", APPEND_VARIANTS))
+           for label, patches in variants.items()}})
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    ssd_variants(libs, device, flush)
+    append_variants(libs, device, flush)
     decode_variants({key: libs[variant_lib(*key)] for key in decode}, device,
                     flush)
     flash_variants(libs, device, flush)

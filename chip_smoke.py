@@ -11,7 +11,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    card at the serving path's shapes (B=8, H=K=32, D=80, block 16, ragged
    lengths with 0 and a full row, unallocated table entries on the scratch
    row), plus a GQA case (K=8) and a windowed case, in bf16 and fp32
-   (tolerance fp32 2e-5, bf16 2e-2; pools after the append bit-exact),
+   (tolerance fp32 2e-5, bf16 2e-2; pools after the append bit-exact, at
+   the decode step's C=1 and for a chunk of C=16 with ragged ``n_valid``,
+   a row writing nothing and several tails on the scratch row),
    each decode case also bit-identical through a table of 256 blocks, one
    row alone and on a second launch, then a long context (T=4096) and
    h2o-danube's GQA window case (T=8192), every row full, timed beside the
@@ -37,9 +39,12 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    times beside their bounds and one ``scaled_dot_product_attention`` call
    each; ``ssd_scan`` (fp32) against its plain version and the sequential
    recurrence at rtol = atol = 2e-4 at the prefill shape (b=2, H=32,
-   S=2048, chunk 256, P=64, N=128), a long prompt (b=1, S=8192) and an odd
+   S=2048, chunk 256, P=64, N=128), a long prompt (b=1, S=8192), an odd
    chunk with groups broadcast by stride (S = L = 100, G=2, strided
-   operands), times beside the bound (no PyTorch call computes the scan);
+   operands) and jamba-v0.1-52b's SSM widths (H=128, N=16), each bit for
+   bit against a rerun, its last batch row alone and its first half of
+   whole chunks alone, times beside the bound (no PyTorch call computes
+   the scan);
 4. serve: ``stablelm-3b`` at full width (32 layers, d_model 2560, bf16,
    random weights from ``torch.Generator`` seed 0) through
    ``ContinuousEngine`` with the paged pool, prefix sharing and megastep
@@ -97,7 +102,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     deliberately perturbed scans), the cross-checks of phase 5 on a
     256-token prompt, the scan at layer 0's own inputs against the
     float64 recurrence, and profiles of one decode step and one prefill
-    call;
+    call (device kernels per ``ssd_scan`` call);
 11. mamba2 serve: the 8-request workload through ``ContinuousEngine``
     (paged, megastep 8, sharing asked for and gated off; dense at
     megastep 8 and 1) and ``ServingEngine``: streams bit-identical, no
@@ -175,11 +180,14 @@ MAMBA_PREFILL_TOL = 4e-2
 
 # the Mamba2 phases (slice 4): mamba2-370m's SSD widths
 SSD_P, SSD_N, SSD_TOL = 64, 128, 2e-4
-SSD_CASES = (                      # label, b, S, H, G, L, strided
-    ("prefill shape", PREFILL_B, PREFILL_S, 32, 1, 256, False),
-    ("long prompt", 1, 8192, 32, 1, 256, False),
-    ("odd L = S, G=2", 2, 100, 32, 2, 100, True),
+SSD_CASES = (                      # label, b, S, H, G, L, N, strided
+    ("prefill shape", PREFILL_B, PREFILL_S, 32, 1, 256, SSD_N, False),
+    ("long prompt", 1, 8192, 32, 1, 256, SSD_N, False),
+    ("odd L = S, G=2", 2, 100, 32, 2, 100, SSD_N, True),
+    # jamba-v0.1-52b's SSM: d_state 16, 8192 / 64 heads, chunk 256
+    ("jamba shape", 2, 2048, 128, 1, 256, 16, False),
 )
+APPEND_CHUNK = 16                  # paged_append's chunked, ragged case
 MAMBA_XCHECK = 256                 # one chunk: prefill_fn needs S % 256
 MAMBA_RUNS = 3                     # timed runs per planner mode
 
@@ -323,7 +331,10 @@ def paged_identities(pa, q, kp, vp, tables, lens, window, rng):
                   got[b])
 
 
-def append_case(rng, dtype, device):
+def append_case(rng, dtype, device, C=1):
+    """The decode step's append (C = 1, row 3 idle) or a chunked one
+    (C > 1): ragged ``n_valid`` with row 3 writing nothing and row 5 a
+    full chunk, several rows sending their tails to the scratch row."""
     nb = B * BPR
     K = H
     pool = (nb + 1, BS, K, D)
@@ -331,16 +342,18 @@ def append_case(rng, dtype, device):
                           device=device)
     v_pool = torch.tensor(rng.standard_normal(pool), dtype=dtype,
                           device=device)
-    k_new = torch.tensor(rng.standard_normal((B, 1, K, D)), dtype=dtype,
+    k_new = torch.tensor(rng.standard_normal((B, C, K, D)), dtype=dtype,
                          device=device)
-    v_new = torch.tensor(rng.standard_normal((B, 1, K, D)), dtype=dtype,
+    v_new = torch.tensor(rng.standard_normal((B, C, K, D)), dtype=dtype,
                          device=device)
     tables = torch.tensor(rng.permutation(nb).reshape(B, BPR)
                           .astype(np.int32), device=device)
-    lens = torch.tensor(rng.integers(0, BPR * BS, B).astype(np.int32),
-                        device=device)
-    n_valid = torch.ones(B, dtype=torch.int32, device=device)
+    lens = torch.tensor(rng.integers(0, BPR * BS - C + 1, B)
+                        .astype(np.int32), device=device)
+    n_valid = torch.tensor(rng.integers(1, C + 1, B).astype(np.int32),
+                           device=device)
     n_valid[3] = 0                                  # an idle row: scratch
+    n_valid[5] = C
     return k_pool, v_pool, k_new, v_new, tables, lens, n_valid
 
 
@@ -409,17 +422,20 @@ def kernel_phase(pa, device):
                              flush)
             del q, kp, vp, got, want
             torch.cuda.empty_cache()
-        k1, v1, kn, vn, tables, lens, nv = append_case(rng, dtype, device)
-        k2, v2 = k1.clone(), v1.clone()
-        pa.paged_append(k1, v1, kn, vn, tables, lens, nv)
-        pa.paged_append_plain(k2, v2, kn, vn, tables, lens, nv)
-        torch.cuda.synchronize()
-        exact = torch.equal(k1, k2) and torch.equal(v1, v2)
-        log(f"paged_append {str(dtype)[6:]} B={B} K={H} D={D}: pools "
-            f"{'bit-identical' if exact else 'DIFFER'}")
-        if not exact:
-            raise AssertionError("paged_append disagrees with its plain "
-                                 "version")
+        for C in (APPEND_CHUNK, 1):
+            k1, v1, kn, vn, tables, lens, nv = append_case(rng, dtype,
+                                                           device, C)
+            k2, v2 = k1.clone(), v1.clone()
+            pa.paged_append(k1, v1, kn, vn, tables, lens, nv)
+            pa.paged_append_plain(k2, v2, kn, vn, tables, lens, nv)
+            torch.cuda.synchronize()
+            exact = torch.equal(k1, k2) and torch.equal(v1, v2)
+            log(f"paged_append {str(dtype)[6:]} B={B} C={C} K={H} D={D}, "
+                f"n_valid {nv.tolist()}: pools "
+                f"{'bit-identical' if exact else 'DIFFER'}")
+            if not exact:
+                raise AssertionError("paged_append disagrees with its plain "
+                                     "version")
         if dtype == torch.bfloat16:
             nbytes = 4 * kn.numel() * kn.element_size() + 4 * B * 3
             timing["paged_append"] = dict(
@@ -1422,11 +1438,12 @@ def planner_model_dag(device):
 # phases 3d and 10-13: mamba2-370m on ssd_scan
 # --------------------------------------------------------------------------
 
-def ssd_inputs(rng, b, S, H, G, device, strided):
-    """The JAX suite's distributions at mamba2-370m's P and N.  Strided:
-    x, B and C sliced out of one projection-like buffer and dt out of a
-    wider one, as the DAG's scan node hands them to the kernel."""
-    P, N = SSD_P, SSD_N
+def ssd_inputs(rng, b, S, H, G, N, device, strided):
+    """The JAX suite's distributions at head dim SSD_P and d_state N.
+    Strided: x, B and C sliced out of one projection-like buffer and dt
+    out of a wider one, as the DAG's scan node hands them to the
+    kernel."""
+    P = SSD_P
     x = rng.standard_normal((b, S, H * P), dtype=np.float32)
     Bm = rng.standard_normal((b, S, G * N), dtype=np.float32)
     Cm = rng.standard_normal((b, S, G * N), dtype=np.float32)
@@ -1443,7 +1460,7 @@ def ssd_inputs(rng, b, S, H, G, device, strided):
             Bm.reshape(b, S, G, N), Cm.reshape(b, S, G, N))
 
 
-def ssd_bound(b, S, H, G):
+def ssd_bound(b, S, H, G, N):
     """The least work that y from a zero state needs.  Operations: the
     recurrence's (``core.flops.ssd_scan_flops``), one multiply-add a
     (token, head, p, n) folding the token into the state and one reading
@@ -1453,34 +1470,54 @@ def ssd_bound(b, S, H, G):
     each once."""
     from repro_torch.core.flops import ssd_scan_flops
 
-    flops = ssd_scan_flops(b, S, H, SSD_P, SSD_N)
-    nbytes = 4 * (2 * b * S * H * SSD_P + 2 * b * S * G * SSD_N
-                  + b * S * H + H)
+    flops = ssd_scan_flops(b, S, H, SSD_P, N)
+    nbytes = 4 * (2 * b * S * H * SSD_P + 2 * b * S * G * N + b * S * H + H)
     t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def ssd_chunked_flops(b, S, H, L):
+def ssd_chunked_flops(b, S, H, G, L, N):
     """The chunked algorithm's own count on these inputs, the kernel's:
-    per (batch, head, chunk) C.B^T over the causal triangle 2 L(L+1)/2 N
-    and its product with x.dt 2 L(L+1)/2 P; per chunk boundary the state
-    folded in and read out, 2 L P N each (no read of the zero start
-    state, no fold of the last chunk, whose state is discarded)."""
-    P, N = SSD_P, SSD_N
+    per (batch, group, chunk) C.B^T over the causal triangle 2 L(L+1)/2 N,
+    once for the group's H / G heads; per (batch, head, chunk) its product
+    with x.dt 2 L(L+1)/2 P; per chunk boundary the state folded in and
+    read out, 2 L P N each (no read of the zero start state, no fold of
+    the last chunk, whose state is discarded)."""
+    P = SSD_P
     tri = L * (L + 1) // 2
     nc = S // L
-    return b * H * (nc * 2 * tri * (N + P) + (nc - 1) * 4 * L * P * N)
+    return b * (nc * G * 2 * tri * N
+                + H * (nc * 2 * tri * P + (nc - 1) * 4 * L * P * N))
+
+
+def ssd_identities(ss, label, args, L, got):
+    """On the card, bit for bit: one batch row alone equals its row of the
+    batch, and the first k whole chunks alone equal the first k L
+    positions of the full run (a chunk reads only earlier chunks)."""
+    x, dt, A, Bm, Cm = args
+    b, S = x.shape[:2]
+    if b > 1:
+        one = ss.ssd_scan(x[b - 1:], dt[b - 1:], A, Bm[b - 1:], Cm[b - 1:], L)
+        identical("ssd_scan", f"{label}, row {b - 1} alone vs in the batch "
+                  f"of {b}", one[0], got[b - 1])
+    k = S // L // 2 * L
+    if k:
+        prefix = ss.ssd_scan(x[:, :k], dt[:, :k], A, Bm[:, :k], Cm[:, :k], L)
+        identical("ssd_scan", f"{label}, the first {k // L} of {S // L} "
+                  f"chunks alone vs the full sequence", prefix, got[:, :k])
 
 
 def ssd_phase(ss, device):
     """ssd_scan against its plain version and the sequential recurrence in
-    three cases; returns (max abs err, timing at the prefill shape)."""
+    four cases, bit-identical on a rerun, one batch row alone and a prefix
+    of whole chunks; returns (max abs err, timing at the prefill
+    shape)."""
     rng = np.random.default_rng(4)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     worst, timing = 0.0, None
-    for label, b, S, H, G, L, strided in SSD_CASES:
-        args = ssd_inputs(rng, b, S, H, G, device, strided)
+    for label, b, S, H, G, L, N, strided in SSD_CASES:
+        args = ssd_inputs(rng, b, S, H, G, N, device, strided)
         got = ss.ssd_scan(*args, L)
         again = ss.ssd_scan(*args, L)
         for what, want in (("plain", ss.ssd_scan_plain(*args, L)),
@@ -1489,31 +1526,32 @@ def ssd_phase(ss, device):
             e = (got - want).abs().max().item()
             ok = torch.allclose(got, want, rtol=SSD_TOL, atol=SSD_TOL)
             log(f"ssd_scan {label} b={b} S={S} H={H} G={G} L={L} P={SSD_P} "
-                f"N={SSD_N}{' strided' if strided else ''}: vs {what} max "
+                f"N={N}{' strided' if strided else ''}: vs {what} max "
                 f"abs err {e:.3e} on |y| <= {want.abs().max().item():.2f} "
                 f"(rtol=atol={SSD_TOL}: {'holds' if ok else 'FAILS'})")
             if not ok:
                 raise AssertionError(f"ssd_scan disagrees with its {what} "
                                      f"version ({label})")
             worst = max(worst, e)
+            del want
         if not torch.equal(got, again):
             raise AssertionError("ssd_scan reruns differ")
+        ssd_identities(ss, label, args, L, got)
         t = dict(ms=median_ms(lambda: ss.ssd_scan(*args, L), flush),
                  plain_ms=median_ms(lambda: ss.ssd_scan_plain(*args, L),
                                     flush),
-                 bound=ssd_bound(b, S, H, G), library_ms=None)
+                 bound=ssd_bound(b, S, H, G, N), library_ms=None)
+        chunked = ssd_chunked_flops(b, S, H, G, L, N)
         log(f"ssd_scan {label}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.5f} ms "
-            f"({t['bound'][1]}); reruns bit-identical")
+            f"({t['bound'][1]}); reruns bit-identical; the chunked "
+            f"algorithm's own count {chunked / 1e9:.3f} GFLOP would take "
+            f"{chunked / PEAK_FLOPS[torch.float32] * 1e3:.5f} ms at the "
+            f"fp32 peak")
         if timing is None:
             timing = t
-            chunked = ssd_chunked_flops(b, S, H, L)
-            log(f"ssd_scan {label}: the bound's operations are the "
-                f"recurrence's; the chunked algorithm's own count "
-                f"{chunked / 1e9:.3f} GFLOP would take "
-                f"{chunked / PEAK_FLOPS[torch.float32] * 1e3:.5f} ms at "
-                f"the fp32 peak")
         del args, got, again
+        torch.cuda.empty_cache()
     del flush
     torch.cuda.empty_cache()
     return worst, timing
@@ -1773,11 +1811,13 @@ def mamba_phases(ss, calls_wrap, device):
     matmul_ms = (2 * (proj * PREFILL_B * PREFILL_S
                       + params.embed.numel() * PREFILL_B)
                  / PEAK_FLOPS[torch.bfloat16] * 1e3)
-    scan_ms = cfg.num_layers * ssd_bound(PREFILL_B, PREFILL_S, 32, 1)[0]
+    scan_ms = cfg.num_layers * ssd_bound(PREFILL_B, PREFILL_S, 32, 1,
+                                         SSD_N)[0]
     device_profile(f"{cfg.name} prefill_fn (B={PREFILL_B}, S={PREFILL_S})",
                    lambda: api.prefill_fn(params, {"tokens": tokens}), 2,
                    (matmul_ms + scan_ms, f"projection ({matmul_ms:.3f} ms) "
-                    f"+ scan ({scan_ms:.3f} ms)"))
+                    f"+ scan ({scan_ms:.3f} ms)"),
+                   (("ssd_scan", ss.launches),))
     calls = calls_wrap(api)
     mamba_serve_phase(api, params, calls, ss)
     del api, params

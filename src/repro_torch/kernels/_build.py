@@ -41,7 +41,7 @@ SIGNATURES = {
     + (_I, _F, _I, _I, _P),
     "flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _F, _I, _P),
-    "ssd_scan": (_P, _P, _P, _P, _P, _P) + (_I,) * 7 + (_L,) * 12 + (_P,),
+    "ssd_scan": (_P,) * 9 + (_I,) * 7 + (_L,) * 12 + (_I, _P),
 }
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 

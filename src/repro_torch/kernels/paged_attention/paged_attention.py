@@ -10,7 +10,8 @@ writes and the filler of unallocated block-table entries):
   optional sliding window (``csrc/paged_decode_attention.cu``);
 * :func:`paged_append` — a chunk's K/V written straight into the
   blocks, invalid positions steered to the scratch row
-  (``csrc/paged_append.cu``).
+  (``csrc/paged_append.cu``: a block of 64 threads per (token, slice of
+  K * D), one element of K and of V a thread).
 
 Each wrapper checks its arguments, then runs the plain PyTorch version
 beside it when the tensors lie on the CPU, and otherwise launches its

@@ -15,21 +15,37 @@ the group broadcast as a stride — at b = 2, S = 2048, H = 32, N = 128
 that saves two 67 MB fp32 copies a launch.  Any chunk length ``L >= 1``
 that divides S is taken (the DAG exporter's rule ``chunk = S`` when S
 is no multiple of the config's chunk), up to what shared memory holds
-(4 bytes a position beside ~115 KB of tiles at N = 128: L up to ~29000;
-beyond, the launch is refused and the wrapper raises).
+(the chunk-state kernel keeps 4 bytes a position beside ~103 KB of
+tiles at N = 128: L up to ~32000; beyond, the launch is refused and the
+wrapper raises).
+
+One wrapper call runs four device kernels on the card, all named
+``ssd_scan_*``: ``ssd_scan_chunk_state`` (every chunk's cumsum and own
+state in parallel), ``ssd_scan_state_pass`` (the states carried across
+the chunks, per (batch, head, element)), ``ssd_scan_chunk_scores``
+(every chunk's C.B^T, once per group) and ``ssd_scan_chunk_out`` (every
+chunk's output in parallel from the state carried in and the scores);
+with one chunk (L = S) the pass is skipped.  The scratch — see
+:func:`scratch_floats`; 16.8 MB of chunk states at b = 2, S = 2048,
+H = 32 — is allocated here, with y, without deterministic mode's NaN
+fill (the kernels write every element they read).
 
 The wrapper checks its arguments, then runs :func:`ssd_scan_plain` (the
 chunked algorithm of :mod:`.ref`) when the tensors lie on the CPU, and
-otherwise launches the kernel on the current stream or raises: there is
-no fallback.  The kernel computes in fp32 and takes fp32 only, as the
-model path calls it.  A launch adds one to :data:`launches`; nothing
-else does.
+otherwise launches the kernels on the current stream or raises: there
+is no fallback.  The kernel computes in fp32 and takes fp32 only, as the
+model path calls it.  A wrapper call that launches adds one to
+:data:`launches`, however many device kernels it runs; nothing else
+does.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from .._args import aligned16, unfilled
 from .._build import load
 from .ref import ssd_chunked
 
@@ -48,6 +64,16 @@ def ssd_scan_plain(x, dt, A, B, C, chunk: int):
     state discarded (the kernel's function in another summation
     order)."""
     return ssd_chunked(x, dt, A, B, C, chunk)[0]
+
+
+def scratch_floats(lib, b, S, H, G, P, N, chunk):
+    """Floats of the kernels' three scratch buffers, as the library
+    ``lib`` lays them out (``ssd_scan_scratch``): the chunk cumsums
+    (b, H, S), the chunk states (b, S / L, H, N, P) and, per (batch,
+    chunk, group), the lower-triangle tiles of C.B^T."""
+    floats = (ctypes.c_longlong * 3)()
+    lib.ssd_scan_scratch(b, S, H, G, P, N, int(chunk), floats)
+    return tuple(floats)
 
 
 def _check(x, dt, A, B, C, chunk):
@@ -92,14 +118,22 @@ def ssd_scan(x, dt, A, B, C, chunk: int):
     G, N = B.shape[2], B.shape[3]
     if N > MAX_D_STATE:
         raise ValueError(f"ssd_scan: d_state {N} > {MAX_D_STATE}")
-    y = torch.empty((b, S, H, P), dtype=torch.float32, device=x.device)
+    with unfilled():
+        y = torch.empty((b, S, H, P), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y
     lib = load("ssd_scan")
+    with unfilled():
+        cs, st, cb = (torch.empty(n, dtype=torch.float32, device=x.device)
+                      for n in scratch_floats(lib, b, S, H, G, P, N, chunk))
+    strides = (*x.stride()[:3], *dt.stride(), *B.stride()[:3],
+               *C.stride()[:3])
     rc = lib.ssd_scan(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-        C.data_ptr(), y.data_ptr(), b, S, H, P, G, N, int(chunk),
-        *x.stride()[:3], *dt.stride(), *B.stride()[:3], *C.stride()[:3],
+        C.data_ptr(), y.data_ptr(), cs.data_ptr(), st.data_ptr(),
+        cb.data_ptr(), b, S, H, P, G, N, int(chunk), *strides,
+        aligned16((x, B, C), *x.stride()[:3], *B.stride()[:3],
+                  *C.stride()[:3], P, N),
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan: launch failed, CUDA error {rc}")

@@ -1,10 +1,11 @@
-"""Build the port's decode kernels for the CPU with g++.
+"""Build the port's CUDA kernels for the CPU with g++.
 
 The CUDA sources in ``src/repro_torch/csrc/`` are rewritten in two small
 ways — a ``kernel<<<grid, block, smem, stream>>>(args)`` launch becomes a
 call of ``emu::launch``, and shared memory becomes one static buffer —
 and compiled against the stand-in headers in ``include/``, which run
-every CUDA thread of a block as a ``std::thread``.  The libraries keep
+every CUDA thread of a block as a ``std::thread`` and the blocks of a
+grid in reverse launch order.  The libraries keep
 the kernels' C interface, so a test calls them with CPU tensors exactly
 as the wrappers call the real ones on the card.
 """
@@ -46,7 +47,11 @@ def transform(text: str) -> str:
     """CUDA source -> the C++ the stand-in headers compile."""
     text = text.replace("extern __shared__ float4 smem4[];",
                         "float4* smem4 = emu::shared_mem;")
-    text = re.sub(r"__shared__ (\w+) (\w+);", r"static \1 \2;", text)
+    text = text.replace(
+        "extern __shared__ __align__(16) float smem[];",
+        "float* smem = reinterpret_cast<float*>(emu::shared_mem);")
+    text = re.sub(r"__shared__ (\w+) (\w+(\[[^\]]*\])?);", r"static \1 \2;",
+                  text)
     out, i = [], 0
     while (m := _LAUNCH.search(text, i)) is not None:
         end = m.start()

@@ -230,3 +230,22 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="d_state"):
         big = torch.zeros(1, 16, 1, 256, device=cuda)
         ssd_scan(x, dt, A, big, big, chunk=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,S,H,G,P,N,chunk", [
+    (2, 512, 4, 1, 64, 128, 128),   # mamba2-370m's P and N, four chunks
+    (2, 390, 2, 2, 40, 16, 65),     # jamba's d_state, odd chunk, G = H
+])
+def test_kernel_row_alone_and_prefix_bit_identical_on_the_card(
+        cuda, b, S, H, G, P, N, chunk):
+    """One batch row alone and the first whole chunks alone give the bits
+    of the full run: a chunk reads only earlier chunks."""
+    x, dt, A, B, C = _strided(_inputs(8, b, S, H, G, P, N), cuda)
+    got = ssd_scan_op(x, dt, A, B, C, chunk=chunk)
+    one = ssd_scan_op(x[1:], dt[1:], A, B[1:], C[1:], chunk=chunk)
+    assert torch.equal(one[0], got[1])
+    k = S // chunk // 2 * chunk
+    prefix = ssd_scan_op(x[:, :k], dt[:, :k], A, B[:, :k], C[:, :k],
+                         chunk=chunk)
+    assert torch.equal(prefix, got[:, :k])

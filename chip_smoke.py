@@ -89,8 +89,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 9. planner B, the model DAG: ``export_decoder_graph`` of stablelm-3b at
    full width, depth cut to 16 of its 32 layers (the Mamba2 phases took
    the time; fp32 weights from ``torch.Generator`` seed 0), batch 1, seq
-   256, through the planner and every mode; fused and whole-plan logits
-   bit-identical to ``reference``;
+   256, through the planner and every mode; every mode's logits and the
+   ``ArenaExecutor``'s bit-identical to ``reference`` (their distance to
+   the op-by-op oracle printed);
 10. mamba2 prefill: ``mamba2-370m`` at full width (48 Mamba2 layers,
     d_model 1024, d_state 128, bf16, random weights from
     ``torch.Generator`` seed 0), ``prefill_fn`` on B=2, S=2048: 48
@@ -114,7 +115,52 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     ``parallax``: one ``ssd_scan`` launch per layer per run, logits
     within 2e-4 of the op-by-op oracle;
 13. CLI: ``serve("mamba2-370m")`` and ``--arch mamba2-370m --engine
-    round``.
+    round``;
+14. MoE kernel cases: ``branch_matmul`` in bf16 at the MoE decode
+    path's shapes — dbrx-132b (16 experts, d_model 6144, d_ff 10752) and
+    kimi-k2 (384 experts, d_model 7168, d_ff 2048) at capacity 8 (B=8) —
+    each against its plain version at 2e-2, bit-identical on a second
+    launch and with 40 more rows a group (the same rows at another
+    capacity), timed beside its bound and one ``torch.bmm`` call on the
+    same padded tensors (the prefill shapes follow in 16 and 18);
+15. dbrx-132b serve: full width, 8 of its 40 layers (54.6 GB of bf16
+    weights; random, from ``torch.Generator`` seed 0; router fp32), the
+    8-request workload through ``ContinuousEngine`` (paged, megastep 8,
+    sharing), launch counts zeroed just before and read just after: per
+    ``decode_fn`` call 3 ``branch_matmul`` launches per layer (the
+    dropless expert GEMMs of ``moe_ragged``) and one of each paged
+    kernel; streams bit-identical at megastep 1, sharing off, on the
+    dense cache (N=8 and 1), and compared through ``ServingEngine``;
+16. dbrx-132b ``prefill_fn`` at B=1, S=2048: 24 ``branch_matmul`` and 8
+    ``flash_attention`` launches a call; layer 0's MoE at its own inputs
+    against ``moe_ragged`` with ``branch_matmul_plain`` patched in (2e-2,
+    routing equal), its dropless capacity printed, and its three
+    ``branch_matmul`` launches at that capacity on its bucketed rows as
+    in 14; the logits against the plain-GEMM call (normwise 2e-2, the
+    tokens routed to other experts counted per layer with their
+    probability gaps); profiles of the call and of one decode step
+    (dense and paged); then an fp32 model at full width, 2 layers, the
+    same against the plain GEMM at 2e-4;
+17. the MoE DAG: ``export_decoder_graph`` of that fp32 model (a router
+    node marked unsupported, 16 expert chains and a combine a layer),
+    batch 1, seq 128, through the planner, ``reference`` and fused
+    ``parallax`` within 2e-4 of the op-by-op oracle, branches a layer and
+    schedule widths printed; the expert chains run branch by branch (no
+    GEMM site: their nodes are not pure 2-D matmuls), and every run's
+    ``branch_matmul`` launches equal its schedule's GEMM sites (0);
+18. kimi-k2: full width, 2 of 61 layers (the dense first layer and one
+    384-expert layer with the shared expert), bf16: one ``prefill_fn``
+    call (B=1, S=2048; 3 ``branch_matmul`` and 2 ``flash_attention``
+    launches), its MoE layer at its own inputs against the plain GEMM
+    with its three launches at the prefill's capacity (as in 16) and on
+    16 tokens against ``moe_dense`` (every expert; normwise 2e-2),
+    profiles of a prefill call and a decode step, and the paged serve run
+    (megastep 8) with its launch counts;
+19. CLI: ``serve("dbrx-132b")`` and ``--arch kimi-k2-1t-a32b --requests
+    4 --max-new 8`` (the reduced configs, 4 experts: ``moe_dense``).
+
+dbrx-132b and kimi-k2 are never resident together, nor beside another
+full-width model: each is freed before the next is built.
 
 The last two lines are the ``kernels`` JSON object and the result
 object ``{"ok": true, "device": {...}}``.  Without a card, or without
@@ -123,6 +169,8 @@ the repository beside it, the script fails before printing a result.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -157,6 +205,7 @@ MODES = {                          # PlanExecutor keyword arguments
     "whole_plan": dict(whole_plan=True),
     "fused, kernel off": dict(use_branch_kernel=False),
 }
+PLANNER_MODES = {k: MODES[k] for k in ("reference", "fused")}  # DAG phases
 
 # the dense-cache and prefill phases (slice 3)
 DA_LONG_T = 4096                   # decode_attention at a long context
@@ -190,6 +239,22 @@ SSD_CASES = (                      # label, b, S, H, G, L, N, strided
 APPEND_CHUNK = 16                  # paged_append's chunked, ragged case
 MAMBA_XCHECK = 256                 # one chunk: prefill_fn needs S % 256
 MAMBA_RUNS = 3                     # timed runs per planner mode
+
+# the MoE phases (slice 5): published widths, depth cut to fit one card
+DBRX_LAYERS = 8                    # of 40: 54.6 GB of bf16 weights
+DBRX_FP32_LAYERS = 2               # the fp32 check and the MoE DAG: ~31 GB
+KIMI_LAYERS = 2                    # dense layer 0 + one 384-expert layer
+MOE_PREFILL_B = 1                  # S = PREFILL_S: ~3.3e12 FLOP of experts
+MOE_PREFILL_RUNS = 2               # timed prefill_fn calls (~1-2 s each)
+MOE_DAG_SEQ = 128
+MOE_KERNEL_ITERS = 10              # timed launches per MoE kernel case
+MOE_EXTRA_ROWS = 40                # the same rows at a second capacity
+MOE_CASES = (                      # label, G, M (capacity = B), K, N
+    ("dbrx decode gate/up", 16, B, 6144, 10752),
+    ("dbrx decode down", 16, B, 10752, 6144),
+    ("kimi decode gate/up", 384, B, 7168, 2048),
+    ("kimi decode down", 384, B, 2048, 7168),
+)
 
 KERNELS = {
     "paged_decode_attention": dict(
@@ -1033,6 +1098,8 @@ def prefill_phase(api, params, kern, name, patch, xcheck, device,
 
 
 KERNEL_FAMILIES = (                # (substring of the kernel name, family)
+    ("branch_matmul", "branch_matmul"),
+    ("flash", "flash_attention"),
     ("paged_decode", "paged_decode_attention"),
     ("dense_decode", "decode_attention"),   # the splits merge inside it
     ("paged_append", "paged_append"),
@@ -1182,6 +1249,53 @@ def gemm_bound(G, M, K, N, dtype):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def gemm_case(bm, label, x, w, flush, iters=50, extra=None):
+    """``branch_matmul`` on (x, w) against its plain version at the
+    dtype's tolerance and bit for bit against a second launch and, with
+    ``extra`` rows (G, m, K), against the same rows at capacity M + m;
+    timed beside its plain version, one ``torch.bmm`` call and its bound.
+    Returns dict(err, ms, plain_ms, library_ms, bound, bound_by)."""
+    G, M, K = x.shape
+    N = w.shape[2]
+    dtype = x.dtype
+    got = bm.branch_matmul(x, w)
+    same = torch.equal(got, bm.branch_matmul(x, w))
+    e = (got.float() - bm.branch_matmul_plain(x, w).float()).abs().max() \
+        .item()
+    as_bmm = torch.equal(got, torch.bmm(x, w))
+    caps, same_cap = "", True
+    if extra is not None:
+        wider = bm.branch_matmul(torch.cat([x, extra], 1), w)[:, :M]
+        same_cap = torch.equal(got, wider)
+        caps = (f", rows at capacity {M + extra.shape[1]} "
+                f"{'bit-identical' if same_cap else 'DIFFER'}")
+        del wider
+    del got
+    ms = median_ms(lambda: bm.branch_matmul(x, w), flush, iters)
+    plain_ms = median_ms(lambda: bm.branch_matmul_plain(x, w), flush, iters)
+    lib_ms = median_ms(lambda: torch.bmm(x, w), flush, iters)
+    bound, bound_by = gemm_bound(G, M, K, N, dtype)
+    log(f"branch_matmul {label} {str(dtype)[6:]} G={G} M={M} K={K} N={N}: "
+        f"max abs err {e:.3e} (tol {TOL[dtype]}), reruns "
+        f"{'bit-identical' if same else 'DIFFER'}{caps}, "
+        f"{'bit-identical to' if as_bmm else 'differs from'} torch.bmm; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm "
+        f"{lib_ms:.4f} ms, bound {bound:.5f} ms ({bound_by}), "
+        f"{2 * G * M * K * N / ms / 1e9:.1f} TFLOP/s of padded rows")
+    if not (e <= TOL[dtype] and same and same_cap):
+        raise AssertionError(f"branch_matmul {label}: off its plain version,"
+                             f" a rerun or another capacity")
+    return dict(err=e, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound=bound, bound_by=bound_by)
+
+
+def add_timing(total, case, n=1):
+    """Add ``n`` times a gemm_case's times and bound to ``total``."""
+    for key in ("ms", "plain_ms", "library_ms", "bound"):
+        total[key] = total.get(key, 0.0) + n * case[key]
+    total.setdefault("by", set()).add(case["bound_by"])
+
+
 def branch_phase(bm, device):
     """Both planner sites in fp32 and bf16, and a ragged group; returns
     (max abs err, timing summed over the two fp32 sites of one fused
@@ -1189,8 +1303,7 @@ def branch_phase(bm, device):
     rng = np.random.default_rng(1)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     worst = 0.0
-    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound=0.0)
-    by = set()
+    total = {}
     for site, (G, M, K, N) in BM_SITES.items():
         # outputs of std 0.5 stay below 4, where a bf16 ulp (1.6e-2) is
         # under the tolerance: two fp32 sums may round to adjacent values
@@ -1200,34 +1313,10 @@ def branch_phase(bm, device):
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.tensor(x0, device=device).to(dtype)
             w = torch.tensor(w0, device=device).to(dtype)
-            got = bm.branch_matmul(x, w)
-            again = bm.branch_matmul(x, w)
-            want = bm.branch_matmul_plain(x, w)
-            as_bmm = torch.equal(got, torch.bmm(x, w))
-            torch.cuda.synchronize()
-            e = (got.float() - want.float()).abs().max().item()
-            same = torch.equal(got, again)
-            worst = max(worst, e)
-            ms = median_ms(lambda: bm.branch_matmul(x, w), flush)
-            plain_ms = median_ms(lambda: bm.branch_matmul_plain(x, w), flush)
-            lib_ms = median_ms(lambda: torch.bmm(x, w), flush)
-            bound, bound_by = gemm_bound(G, M, K, N, dtype)
-            log(f"branch_matmul {site} {str(dtype)[6:]} G={G} M={M} K={K} "
-                f"N={N}: max abs err {e:.3e} (tol {TOL[dtype]}), reruns "
-                f"{'bit-identical' if same else 'DIFFER'}, "
-                f"{'bit-identical to' if as_bmm else 'differs from'} "
-                f"torch.bmm; kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm "
-                f"{lib_ms:.4f} ms, bound {bound:.5f} ms ({bound_by})")
-            if not (e <= TOL[dtype] and same):
-                raise AssertionError("branch_matmul disagrees with its plain "
-                                     "version or with itself")
+            case = gemm_case(bm, site, x, w, flush)
+            worst = max(worst, case["err"])
             if dtype == torch.float32:
-                total["ms"] += ms
-                total["plain_ms"] += plain_ms
-                total["library_ms"] += lib_ms
-                total["bound"] += bound
-                by.add(bound_by)
+                add_timing(total, case)
     from repro_torch.kernels.branch_matmul import parallel_branches
     xs = [torch.tensor(rng.standard_normal((m, 80), dtype=np.float32),
                        device=device) for m in (512, 384, 450, 129)]
@@ -1241,7 +1330,7 @@ def branch_phase(bm, device):
                                  "group")
     log(f"branch_matmul ragged parallel_branches M=(512, 384, 450, 129) "
         f"K=80 N=2560 fp32: max abs err {worst:.3e}")
-    total["bound"] = (total["bound"], "/".join(sorted(by)))
+    total["bound"] = (total["bound"], "/".join(sorted(total.pop("by"))))
     log(f"branch_matmul per fused run (qkv + out sites, fp32): kernel "
         f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
         f"torch.bmm {total['library_ms']:.4f} ms, bound "
@@ -1372,24 +1461,35 @@ def planner_kernel_path(bm, device):
     return launches
 
 
-def planner_model_dag(device):
-    """Phase 9: stablelm-3b at full width, ``DAG_LAYERS`` deep, through
-    the planner."""
-    from repro_torch.configs import get_config
+def dag_check(label, cfg, lm, seq, modes, runs, device, tol=None,
+              unsupported=None, scan=None, arena=False):
+    """``export_decoder_graph`` of ``lm`` at batch ``DAG_BATCH`` and
+    ``seq``, planned with the card's free memory as the §3.3 budget and
+    run in every mode of ``modes`` (``runs`` timed runs each), every run
+    launching ``branch_matmul`` once per GEMM site of its schedule.  Each
+    mode's logits within ``tol`` of the op-by-op oracle or, with
+    ``tol=None``, bit-identical to ``reference``.  ``unsupported``: the
+    name suffix of the one unsupported node a layer; ``scan``: the
+    ``ssd_scan`` wrapper module, launched once a layer by the oracle and
+    by every run; ``arena``: the ArenaExecutor equals reference too.
+    Returns the schedule's CompileStats."""
     from repro_torch.core import (ArenaExecutor, ParallaxConfig,
                                   clear_compile_cache, compile_plan,
                                   compile_schedule)
     from repro_torch.core.executor import to_device
-    from repro_torch.models import build_model
+    from repro_torch.kernels import branch_matmul as bm
     from repro_torch.models.dag_export import export_decoder_graph
 
-    cfg = dataclasses.replace(get_config("stablelm-3b"),
-                              num_layers=DAG_LAYERS)
     t0 = time.perf_counter()
-    api = build_model(cfg, device=device, dtype="float32")
-    lm = api.init(torch.Generator(device=device).manual_seed(0))
-    g, make = export_decoder_graph(cfg, lm, DAG_BATCH, DAG_SEQ)
+    g, make = export_decoder_graph(cfg, lm, DAG_BATCH, seq)
     export_s = time.perf_counter() - t0
+    marked = ""
+    if unsupported:
+        nodes = [n for n in g.nodes.values() if n.name.endswith(unsupported)]
+        if len(nodes) != cfg.num_layers or any(n.supported for n in nodes):
+            raise AssertionError(f"the DAG lacks its unsupported "
+                                 f"{unsupported} nodes")
+        marked = f" ({len(nodes)} unsupported {unsupported} nodes)"
     budget = torch.cuda.mem_get_info(device)[0]
     t0 = time.perf_counter()
     plan = compile_plan(g, ParallaxConfig(budget=budget))
@@ -1397,39 +1497,76 @@ def planner_model_dag(device):
     t0 = time.perf_counter()
     stats = compile_schedule(plan, donate=True).stats
     lower_s = time.perf_counter() - t0
-    log(f"planner B: {cfg.name} full width, {cfg.num_layers} of 32 "
-        f"layers (d_model {cfg.d_model}, fp32), batch {DAG_BATCH}, seq "
-        f"{DAG_SEQ}: {g.num_nodes()} nodes after build+export in "
-        f"{export_s:.1f} s; planned in {plan_s:.2f} s (budget "
-        f"{budget / 2**30:.2f} GiB) into {len(plan.branches)} branches, "
-        f"{len(plan.layers)} layers, {len(plan.schedule.layers)} scheduled "
-        f"layers, max width {plan.schedule.max_width()}; lowered in "
-        f"{lower_s:.2f} s, {stats}")
+    widths = collections.Counter(sl.width() for sl in plan.schedule.layers)
+    log(f"{label}: {cfg.name} full width, {cfg.num_layers} layers (fp32), "
+        f"batch {DAG_BATCH}, seq {seq}: {g.num_nodes()} nodes{marked}, "
+        f"built+exported in {export_s:.1f} s; planned in {plan_s:.2f} s "
+        f"(budget {budget / 2**30:.2f} GiB) into {len(plan.branches)} "
+        f"branches ({len(plan.branches) / cfg.num_layers:.1f} a model "
+        f"layer), {len(plan.layers)} layers, {len(plan.schedule.layers)} "
+        f"scheduled layers (width: count {dict(sorted(widths.items()))}, "
+        f"max {plan.schedule.max_width()}); lowered in {lower_s:.2f} s, "
+        f"{stats}")
     env = to_device(make(np.random.default_rng(0)), device)
-    modes = {k: v for k, v in MODES.items() if k != "fused, kernel off"}
-    res = run_modes(plan, env, device, modes, RUNS_B)
-    ref = res["reference"][0]
-    if ref.shape != (DAG_BATCH, DAG_SEQ, cfg.vocab_size) \
-            or not torch.isfinite(ref).all():
+    if scan:
+        scan.reset_launches()
+    oracle = g.execute(env)[g.outputs[0]]
+    torch.cuda.synchronize()
+    if scan and scan.launches["ssd_scan"] != cfg.num_layers:
+        raise AssertionError("the oracle did not run ssd_scan per layer")
+    if oracle.shape != (DAG_BATCH, seq, cfg.vocab_size) \
+            or not torch.isfinite(oracle).all():
         raise AssertionError("malformed logits")
+    if scan:
+        scan.reset_launches()
+    res = run_modes(plan, env, device, modes, runs, bm)
+    if scan:
+        n = len(modes) * (1 + runs)
+        launched = scan.launches["ssd_scan"]
+        log(f"{label}: {launched} ssd_scan launches in {n} runs "
+            f"({launched / n:.0f} per run)")
+        if launched != cfg.num_layers * n:
+            raise AssertionError("not one ssd_scan launch per layer per run")
+    ref = res["reference"][0]
+    against = "reference" if tol is None else "the oracle"
     for mode, (o, disp, syncs, ms, peak) in res.items():
-        same = torch.equal(o, ref)
-        log(f"planner B: {mode:12s} {disp:5d} dispatches, {syncs:3d} syncs, "
+        same = torch.equal(o, ref if tol is None else oracle)
+        log(f"{label}: {mode:12s} {disp:5d} dispatches, {syncs:3d} syncs, "
             f"{ms[0]:9.3f} ms/run ({ms[1]:.3f}-{ms[2]:.3f}), peak "
-            f"+{peak:.2f} GiB; logits "
-            f"{'bit-identical to' if same else 'DIFFER from'} reference")
+            f"+{peak:.2f} GiB; vs the oracle: max abs "
+            f"{(o - oracle).abs().max().item():.3e}; "
+            f"{'bit-identical to' if same else 'not bit-identical to'} "
+            f"{against}")
+        if not (same if tol is None
+                else torch.allclose(o, oracle, rtol=tol, atol=tol)):
+            raise AssertionError(f"{label}: {mode} off {against}")
+    if arena:
+        same = torch.equal(ArenaExecutor(plan, device=device)(env)[
+            g.outputs[0]], ref)
+        log(f"{label}: ArenaExecutor logits "
+            f"{'bit-identical to' if same else 'DIFFER from'} reference; "
+            f"resident {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
         if not same:
-            raise AssertionError(f"{mode} differs from reference")
-    arena = ArenaExecutor(plan, device=device)(env)[g.outputs[0]]
-    log(f"planner B: ArenaExecutor logits "
-        f"{'bit-identical to' if torch.equal(arena, ref) else 'DIFFER from'}"
-        f" reference; resident: fp32 weights "
-        f"{sum(p.numel() for p in lm.parameters()) * 4 / 2**30:.2f} GiB, "
-        f"all {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    if not torch.equal(arena, ref):
-        raise AssertionError("ArenaExecutor differs from reference")
-    del api, lm, g, make, plan, env, res, ref, arena
+            raise AssertionError("ArenaExecutor differs from reference")
+    del g, make, plan, env, res, ref, oracle
     clear_compile_cache()
+    return stats
+
+
+def planner_model_dag(device):
+    """Phase 9: stablelm-3b at full width, ``DAG_LAYERS`` deep, through
+    the planner."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("stablelm-3b"),
+                              num_layers=DAG_LAYERS)
+    lm = build_model(cfg, device=device, dtype="float32").init(
+        torch.Generator(device=device).manual_seed(0))
+    modes = {k: v for k, v in MODES.items() if k != "fused, kernel off"}
+    dag_check("planner B", cfg, lm, DAG_SEQ, modes, RUNS_B, device,
+              arena=True)
+    del lm
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1708,58 +1845,14 @@ def mamba_planner_phase(ss, device):
     1, seq 256, through the planner: reference and fused parallax against
     the op-by-op oracle, one ssd_scan launch per layer per run."""
     from repro_torch.configs import get_config
-    from repro_torch.core import (ParallaxConfig, clear_compile_cache,
-                                  compile_plan, compile_schedule)
-    from repro_torch.core.executor import to_device
     from repro_torch.models import build_model
-    from repro_torch.models.dag_export import export_decoder_graph
 
     cfg = get_config("mamba2-370m")
-    t0 = time.perf_counter()
     lm = build_model(cfg, device=device, dtype="float32").init(
         torch.Generator(device=device).manual_seed(0))
-    g, make = export_decoder_graph(cfg, lm, DAG_BATCH, DAG_SEQ)
-    export_s = time.perf_counter() - t0
-    scans = [n for n in g.nodes.values() if n.name.endswith(".ssd_scan")]
-    if len(scans) != cfg.num_layers or any(n.supported for n in scans):
-        raise AssertionError("the DAG lacks its unsupported scan nodes")
-    budget = torch.cuda.mem_get_info(device)[0]
-    plan = compile_plan(g, ParallaxConfig(budget=budget))
-    stats = compile_schedule(plan, donate=True).stats
-    env = to_device(make(np.random.default_rng(0)), device)
-    ss.reset_launches()
-    oracle = g.execute(env)[g.outputs[0]]
-    torch.cuda.synchronize()
-    if ss.launches["ssd_scan"] != cfg.num_layers:
-        raise AssertionError("the oracle did not run the kernel per layer")
-    log(f"mamba planner: {cfg.name} full width and depth ({cfg.num_layers} "
-        f"layers, fp32), batch {DAG_BATCH}, seq {DAG_SEQ} (one chunk of "
-        f"{cfg.ssm.chunk}): {g.num_nodes()} nodes, {len(scans)} unsupported "
-        f"scan nodes, built+exported in {export_s:.1f} s; "
-        f"{len(plan.branches)} branches, {len(plan.layers)} layers, {stats}")
-    if oracle.shape != (DAG_BATCH, DAG_SEQ, cfg.vocab_size) \
-            or not torch.isfinite(oracle).all():
-        raise AssertionError("malformed logits")
-    modes = {"reference": dict(mode="reference"), "fused": dict()}
-    ss.reset_launches()
-    res = run_modes(plan, env, device, modes, MAMBA_RUNS)
-    runs = len(modes) * (1 + MAMBA_RUNS)
-    launched = ss.launches["ssd_scan"]
-    log(f"mamba planner: {launched} ssd_scan launches in {runs} runs "
-        f"({launched / runs:.0f} per run)")
-    if launched != cfg.num_layers * runs:
-        raise AssertionError("not one ssd_scan launch per layer per run")
-    for mode, (o, disp, syncs, ms, peak) in res.items():
-        same = torch.equal(o, oracle)
-        e = (o - oracle).abs().max().item()
-        log(f"mamba planner: {mode:9s} {disp:4d} dispatches, {syncs:3d} "
-            f"syncs, {ms[0]:8.3f} ms/run ({ms[1]:.3f}-{ms[2]:.3f}), peak "
-            f"+{peak:.2f} GiB; vs the oracle: max abs {e:.3e}, "
-            f"{'bit-identical' if same else 'not bit-identical'}")
-        if not torch.allclose(o, oracle, rtol=SSD_TOL, atol=SSD_TOL):
-            raise AssertionError(f"{mode} off the oracle")
-    del lm, g, make, plan, env, res, oracle
-    clear_compile_cache()
+    dag_check("mamba planner", cfg, lm, DAG_SEQ, PLANNER_MODES, MAMBA_RUNS,
+              device, tol=SSD_TOL, unsupported=".ssd_scan", scan=ss)
+    del lm
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1837,6 +1930,476 @@ def mamba_phases(ss, calls_wrap, device):
     log(f"cli: python -m repro_torch.launch.serve {' '.join(argv)}")
     serve_main(argv)
     return launched
+
+
+# --------------------------------------------------------------------------
+# phases 14-19: MoE on branch_matmul (dbrx-132b, kimi-k2)
+# --------------------------------------------------------------------------
+
+def moe_kernel_phase(bm, device):
+    """Phase 14: ``branch_matmul`` in bf16 at the MoE decode path's
+    shapes, one projection each; returns (max abs err, timing of one dbrx
+    MoE layer's three launches at decode, B=8).  The prefill shapes are
+    checked at the capacities the prefill runs, in phases 16 and 18."""
+    gen = torch.Generator(device=device).manual_seed(2)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    worst = 0.0
+    layer = {}
+    for label, G, M, K, N in MOE_CASES:
+        # outputs of std 0.5, as in branch_phase
+        x = torch.randn((G, M, K), generator=gen, device=device,
+                        dtype=torch.bfloat16)
+        w = torch.randn((G, K, N), generator=gen, device=device,
+                        dtype=torch.bfloat16).mul_(1 / (2 * np.sqrt(K)))
+        extra = torch.randn((G, MOE_EXTRA_ROWS, K), generator=gen,
+                            device=device, dtype=torch.bfloat16)
+        case = gemm_case(bm, f"MoE {label}", x, w, flush, MOE_KERNEL_ITERS,
+                         extra)
+        worst = max(worst, case["err"])
+        if label.startswith("dbrx"):
+            add_timing(layer, case, 2 if "gate" in label else 1)  # up too
+        del x, w, extra
+        torch.cuda.empty_cache()
+    layer.pop("by")
+    layer["bound"] = (layer["bound"], "bytes")
+    log(f"branch_matmul per dbrx MoE layer at decode (B=8: gate, up, down "
+        f"at capacity 8): kernel {layer['ms']:.4f} ms, plain "
+        f"{layer['plain_ms']:.4f} ms, torch.bmm {layer['library_ms']:.4f} "
+        f"ms, bound {layer['bound'][0]:.5f} ms (bytes)")
+    return worst, layer
+
+
+class RoutingRecorder:
+    """While active, ``repro_torch.models.moe.route`` records per call the
+    sorted expert ids of each token and the gap between its k-th and
+    (k+1)-th router probability; the first call's input is kept."""
+
+    def __init__(self):
+        import repro_torch.models.moe as moe_mod
+
+        self.mod, self.route = moe_mod, moe_mod.route
+        self.calls, self.first_x = [], None
+
+    def __enter__(self):
+        def recorded(params, cfg, x):
+            out = self.route(params, cfg, x)
+            if self.first_x is None:
+                self.first_x = x.clone()
+            probs = torch.softmax(x.float() @ params.router.float(), -1)
+            top = torch.topk(probs, cfg.moe.num_experts_per_tok + 1,
+                             -1).values
+            self.calls.append((out[1].sort(-1).values,
+                               top[:, -2] - top[:, -1]))
+            return out
+
+        self.mod.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.route
+
+
+@contextlib.contextmanager
+def plain_experts(bm):
+    """A context in which ``moe_ragged`` runs ``branch_matmul_plain``."""
+    import repro_torch.models.moe as moe_mod
+
+    kernel = moe_mod.branch_matmul
+    moe_mod.branch_matmul = bm.branch_matmul_plain
+    try:
+        yield
+    finally:
+        moe_mod.branch_matmul = kernel
+
+
+def routing_flips(a, b):
+    """Per MoE layer: tokens routed to another expert set in run b than
+    in run a, and a's probability gaps (k-th minus (k+1)-th) at them."""
+    out = []
+    for (ia, ga), (ib, _) in zip(a.calls, b.calls):
+        moved = (ia != ib).any(-1)
+        gaps = ga[moved]
+        out.append((int(moved.sum()), gaps.max().item() if len(gaps)
+                    else None))
+    return out
+
+
+def moe_prefill_flops(cfg, Bn, S):
+    """Matrix products of one prefill_fn call: projections over every
+    token, causal attention, the router, the dense layers' MLPs, the
+    k routed experts (and the shared one) per token; the head on the
+    last token only."""
+    d, D = cfg.d_model, cfg.resolved_head_dim()
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    m = cfg.moe
+    T = Bn * S
+    flops = 2 * Bn * d * cfg.vocab_size
+    for i in range(cfg.num_layers):
+        flops += 2 * T * (d * (H + 2 * K) * D + H * D * d)
+        flops += 2 * Bn * H * S * S * D        # causal QK^T and PV, halved
+        if cfg.is_moe_layer(i):
+            f = m.d_ff_expert
+            flops += 2 * T * d * m.num_experts
+            flops += 2 * T * 3 * d * f * (m.num_experts_per_tok
+                                          + m.num_shared_experts)
+        else:
+            flops += 2 * T * 3 * d * cfg.d_ff
+    return flops
+
+
+def moe_layer_check(bm, cfg, moe, x, recorded, label, device):
+    """One MoE layer of a ``prefill_fn`` call at its own inputs x (T, d):
+    ``moe_ragged`` through the kernel against the plain GEMM (2e-2, the
+    routing equal to the call's ``recorded`` sorted expert ids); then each
+    of its three ``branch_matmul`` launches on the layer's weights and
+    bucketed rows, at the dropless capacity the call ran.  Returns the
+    max abs err."""
+    import torch.nn.functional as F
+
+    import repro_torch.models.moe as moe_mod
+
+    # room for the plain GEMM's fp32 copy of a weight tensor (21 GiB at
+    # kimi's widths) beside the model
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(4)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    with torch.no_grad():
+        y_k, _ = moe_mod.moe_ragged(moe, cfg, x)
+        with plain_experts(bm):
+            y_p, _ = moe_mod.moe_ragged(moe, cfg, x)
+        idx = moe_mod.route(moe, cfg, x)[1]
+        b = moe_mod.Buckets(idx, cfg.moe.num_experts)
+        torch.cuda.synchronize()
+    e = (y_k.float() - y_p.float()).abs().max().item()
+    same = torch.equal(idx.sort(-1).values, recorded)
+    log(f"moe prefill: {cfg.name} {label}'s MoE at its own inputs "
+        f"(T={x.shape[0]}, experts' rows {b.counts.min().item()}-"
+        f"{b.counts.max().item()}, dropless capacity {b.cap}): kernel vs "
+        f"plain GEMM max abs {e:.3e} on |y| <= "
+        f"{y_p.float().abs().max().item():.2f} (tol {TOL[x.dtype]}), "
+        f"normwise {normwise(y_k, y_p):.3e}; routing "
+        f"{'equal' if same else 'DIFFERS'}")
+    if not (torch.allclose(y_k.float(), y_p.float(), rtol=TOL[x.dtype],
+                           atol=TOL[x.dtype]) and same):
+        raise AssertionError("moe_ragged's kernel path off its plain path")
+    del y_k, y_p
+    dt, E = x.dtype, cfg.moe.num_experts
+    layer, worst = {}, e
+    with torch.no_grad():
+        xb = b.gather(x)
+        ws = [moe.w_gate.to(dt), moe.w_up.to(dt)]
+        for name, w in zip(("gate", "up"), ws):
+            extra = torch.randn((E, MOE_EXTRA_ROWS, xb.shape[2]),
+                                generator=gen, device=device, dtype=dt)
+            case = gemm_case(bm, f"MoE {cfg.name} prefill {name}", xb, w,
+                             flush, MOE_KERNEL_ITERS, extra)
+            add_timing(layer, case)
+            worst = max(worst, case["err"])
+        h = F.silu(bm.branch_matmul(xb, ws[0])) * bm.branch_matmul(xb, ws[1])
+        del xb, ws
+        extra = torch.randn((E, MOE_EXTRA_ROWS, h.shape[2]), generator=gen,
+                            device=device, dtype=dt)
+        case = gemm_case(bm, f"MoE {cfg.name} prefill down", h,
+                         moe.w_down.to(dt), flush, MOE_KERNEL_ITERS, extra)
+        add_timing(layer, case)
+        worst = max(worst, case["err"])
+    log(f"branch_matmul per {cfg.name} MoE layer at prefill (T="
+        f"{x.shape[0]}: gate, up, down at capacity {b.cap}): kernel "
+        f"{layer['ms']:.4f} ms, plain {layer['plain_ms']:.4f} ms, torch.bmm "
+        f"{layer['library_ms']:.4f} ms, bound {layer['bound']:.5f} ms "
+        f"({'/'.join(sorted(layer['by']))})")
+    return worst
+
+
+def moe_serve_phase(api, params, calls, bm, pa, da, identities=True):
+    """Phases 15 and 18: the 8-request workload through ContinuousEngine
+    (paged, megastep 8, sharing), launch counts zeroed just before and
+    read just after: per decode_fn call three ``branch_matmul`` launches
+    per MoE layer and one of each paged kernel per layer.  With
+    ``identities``, the same streams at megastep 1, sharing off, on the
+    dense cache (N=8 and 1) and, compared, through the round engine.
+    Returns the main run's branch_matmul launches."""
+    cfg = api.cfg
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    calls[0] = 0
+    bm.reset_launches()
+    pa.reset_launches()
+    da.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    streams, eng, wall = serve_full_width(api, params, 8, True)
+    launched = {**bm.launches, **pa.launches, **da.launches}
+    n_tok = sum(len(t) for t in streams.values())
+    log(f"moe serve: {cfg.name}: 8/8 requests, {n_tok} tokens in "
+        f"{wall:.3f} s ({n_tok / wall:.1f} tok/s), {eng.dispatches} "
+        f"dispatches ({eng.dispatches / n_tok:.4f} per token), "
+        f"{eng.megasteps} megasteps, {calls[0]} decode_fn calls, shared "
+        f"block hits {eng.kv.shared_block_hits}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{launched}")
+    want = {"branch_matmul": 3 * n_moe * calls[0],
+            "paged_decode_attention": cfg.num_layers * calls[0],
+            "paged_append": cfg.num_layers * calls[0],
+            "decode_attention": 0}
+    if launched != want or calls[0] == 0:
+        raise AssertionError(f"{cfg.name}: launches {launched}, expected "
+                             f"{want}")
+    if eng.kv.shared_block_hits == 0:
+        raise AssertionError("prefix sharing never engaged")
+    if identities:
+        for megastep, sharing in ((1, True), (8, False)):
+            other, e2, w2 = serve_full_width(api, params, megastep,
+                                             sharing)
+            same = other == streams
+            log(f"moe identity: megastep {megastep}, sharing {sharing}: "
+                f"streams {'bit-identical' if same else 'DIFFER'} "
+                f"({w2:.3f} s, {e2.dispatches} dispatches)")
+            if not same:
+                raise AssertionError("greedy streams differ")
+        dense_serve_phase(api, params, calls, streams, pa, da)
+    return launched["branch_matmul"]
+
+
+def moe_prefill_phase(api, params, bm, fa, device):
+    """Phase 16: prefill_fn at B=1, S=2048 through ``branch_matmul`` and
+    ``flash_attention``; layer 0's MoE at its own inputs against the
+    plain GEMM (routing equal); the logits against the call with the
+    plain GEMM patched in, routing flips counted per layer; a device
+    profile of the call.  Returns the MoE checks' max abs err."""
+    cfg = api.cfg
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    tokens = torch.tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (MOE_PREFILL_B, PREFILL_S)), dtype=torch.int32,
+        device=device)
+    batch = {"tokens": tokens}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        bm.reset_launches()
+        fa.reset_launches()
+        with RoutingRecorder() as rec:
+            logits = api.prefill_fn(params, batch)
+        torch.cuda.synchronize()
+        launched = (bm.launches["branch_matmul"],
+                    fa.launches["flash_attention"])
+        peak = torch.cuda.max_memory_allocated()
+        walls = []
+        for _ in range(MOE_PREFILL_RUNS):
+            t0 = time.perf_counter()
+            api.prefill_fn(params, batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with plain_experts(bm), RoutingRecorder() as rec_plain:
+            plain = api.prefill_fn(params, batch)
+        torch.cuda.synchronize()
+    if logits.shape != (MOE_PREFILL_B, cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError("prefill_fn: malformed logits")
+    if launched != (3 * n_moe, cfg.num_layers):
+        raise AssertionError(f"prefill_fn: launches (branch_matmul, "
+                             f"flash_attention) {launched}, expected "
+                             f"{(3 * n_moe, cfg.num_layers)}")
+    first = next(layer for layer in params.layers if layer.kind[1] == "moe")
+    err = moe_layer_check(bm, cfg, first.moe, rec.first_x, rec.calls[0][0],
+                          "layer 0", device)
+    rel = normwise(logits, plain)
+    same_argmax = torch.equal(logits.argmax(-1), plain.argmax(-1))
+    flips = routing_flips(rec, rec_plain)
+    log(f"moe prefill: {cfg.name} prefill_fn B={MOE_PREFILL_B} "
+        f"S={PREFILL_S}: {launched[0]} branch_matmul and {launched[1]} "
+        f"flash_attention launches per call, {float(np.median(walls)):.3f} "
+        f"ms per call (median of {MOE_PREFILL_RUNS}, {min(walls):.3f}-"
+        f"{max(walls):.3f}), peak device memory {peak / 2**30:.2f} GiB; vs "
+        f"the plain GEMM: logits normwise {rel:.3e} (tol {PREFILL_TOL}), "
+        f"argmax {'equal' if same_argmax else 'DIFFERS'}"
+        f"; tokens routed elsewhere per MoE layer (largest gap among "
+        f"them): {flips}")
+    if not rel <= PREFILL_TOL:
+        raise AssertionError("prefill_fn off its plain-GEMM version")
+    del plain, rec, rec_plain
+    bound_ms = moe_prefill_flops(cfg, MOE_PREFILL_B, PREFILL_S) \
+        / PEAK_FLOPS[torch.bfloat16] * 1e3
+    device_profile(f"{cfg.name} prefill_fn (B={MOE_PREFILL_B}, "
+                   f"S={PREFILL_S})",
+                   lambda: api.prefill_fn(params, batch), 1,
+                   (bound_ms, "matrix-product"),
+                   (("branch_matmul", bm.launches),
+                    ("flash_attention", fa.launches)))
+    return err
+
+
+def moe_fp32_phase(bm, device):
+    """Phases 16b and 17: dbrx-132b at full width, ``DBRX_FP32_LAYERS``
+    deep, in fp32: prefill_fn against the plain GEMM at 2e-4 (routing
+    flips counted); then its DAG through the planner, ``reference`` and
+    fused ``parallax`` within 2e-4 of the op-by-op oracle."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("dbrx-132b"),
+                              num_layers=DBRX_FP32_LAYERS)
+    t0 = time.perf_counter()
+    api = build_model(cfg, device=device, dtype="float32")
+    lm = api.init(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"model: {cfg.name} full width, {cfg.num_layers} of 40 layers, "
+        f"fp32, {sum(p.numel() for p in lm.parameters()) / 1e9:.2f} B "
+        f"params, init {time.perf_counter() - t0:.1f} s")
+    tokens = torch.tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (MOE_PREFILL_B, PREFILL_S)), dtype=torch.int32,
+        device=device)
+    with torch.no_grad():
+        bm.reset_launches()
+        with RoutingRecorder() as rec:
+            got = api.prefill_fn(lm, {"tokens": tokens})
+        launched = bm.launches["branch_matmul"]
+        with plain_experts(bm), RoutingRecorder() as rec_plain:
+            want = api.prefill_fn(lm, {"tokens": tokens})
+        torch.cuda.synchronize()
+    rel = normwise(got, want)
+    log(f"moe prefill: fp32 model, {cfg.num_layers} layers: "
+        f"{launched} branch_matmul launches; kernel vs plain GEMM logits "
+        f"normwise {rel:.3e} (tol {PREFILL_TOL_FP32}), max abs "
+        f"{(got - want).abs().max().item():.3e}; tokens routed elsewhere "
+        f"per layer: {routing_flips(rec, rec_plain)}")
+    if not rel <= PREFILL_TOL_FP32 or launched != 3 * cfg.num_layers:
+        raise AssertionError("fp32 prefill_fn off its plain-GEMM version")
+    del got, want, rec, rec_plain
+
+    stats = dag_check("moe planner", cfg, lm, MOE_DAG_SEQ, PLANNER_MODES,
+                      MAMBA_RUNS, device, tol=PREFILL_TOL_FP32,
+                      unsupported=".router")
+    log(f"moe planner: {stats.gemm_sites} GEMM sites: the "
+        f"{cfg.moe.num_experts} expert chains a layer run branch by branch "
+        f"(their nodes close over their weights and gate/up carries the "
+        f"SwiGLU, as in the JAX exporter, so no node is a pure 2-D matmul)")
+    del api, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def kimi_phase(bm, pa, da, fa, device):
+    """Phase 18: kimi-k2 at full width, ``KIMI_LAYERS`` deep (the dense
+    first layer, then one 384-expert layer with its shared expert): one
+    prefill_fn call, its MoE layer at its own inputs against the plain
+    GEMM and on 16 tokens against ``moe_dense`` (all experts), profiles
+    of a prefill call and a decode step, and one paged serve run, with
+    launch counts.  Returns the MoE checks' max abs err."""
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("kimi-k2-1t-a32b"),
+                              num_layers=KIMI_LAYERS)
+    t0 = time.perf_counter()
+    api = build_model(cfg, device=device)
+    params = api.init(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"model: {cfg.name} full width, {cfg.num_layers} of 61 layers "
+        f"({[layer.kind for layer in params.layers]}), "
+        f"{sum(p.numel() for p in params.parameters()) / 1e9:.2f} B params "
+        f"in {api.dtype}, init {time.perf_counter() - t0:.1f} s")
+    tokens = torch.tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (MOE_PREFILL_B, PREFILL_S)), dtype=torch.int32,
+        device=device)
+    with torch.no_grad():
+        bm.reset_launches()
+        fa.reset_launches()
+        with RoutingRecorder() as rec:
+            t0 = time.perf_counter()
+            logits = api.prefill_fn(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        launched = (bm.launches["branch_matmul"],
+                    fa.launches["flash_attention"])
+        moe = params.layers[1].moe
+        x = rec.first_x[:16]
+        y_k, _ = moe_mod.moe_ragged(moe, cfg, x)
+        y_d, _ = moe_mod.moe_dense(moe, cfg, x)
+        torch.cuda.synchronize()
+    rel = normwise(y_k, y_d)
+    log(f"kimi: layer 1's MoE ({cfg.moe.num_experts} experts, top-"
+        f"{cfg.moe.num_experts_per_tok}, shared expert) on 16 tokens: "
+        f"moe_ragged (branch_matmul) vs moe_dense (every expert) normwise "
+        f"{rel:.3e} (tol {PREFILL_TOL})")
+    if not rel <= PREFILL_TOL:
+        raise AssertionError("kimi: moe_ragged off moe_dense")
+    log(f"kimi: prefill_fn B={MOE_PREFILL_B} S={PREFILL_S}: {wall:.3f} ms "
+        f"(first call), launches (branch_matmul, flash_attention) "
+        f"{launched}")
+    if logits.shape != (MOE_PREFILL_B, cfg.vocab_size) \
+            or not torch.isfinite(logits).all() or launched != (3, 2):
+        raise AssertionError("kimi prefill_fn: malformed logits or "
+                             "launches")
+    del x, y_k, y_d, logits
+    err = moe_layer_check(bm, cfg, moe, rec.first_x, rec.calls[0][0],
+                          "layer 1", device)
+    del rec
+    bound_ms = moe_prefill_flops(cfg, MOE_PREFILL_B, PREFILL_S) \
+        / PEAK_FLOPS[torch.bfloat16] * 1e3
+    device_profile(f"{cfg.name} prefill_fn (B={MOE_PREFILL_B}, "
+                   f"S={PREFILL_S})",
+                   lambda: api.prefill_fn(params, {"tokens": tokens}), 1,
+                   (bound_ms, "matrix-product"),
+                   (("branch_matmul", bm.launches),
+                    ("flash_attention", fa.launches)))
+    step_profile(api, params, device, (
+        ("branch_matmul", bm.launches),
+        ("paged_decode_attention", pa.launches),
+        ("decode_attention", da.launches)))
+    calls = count_calls(api)
+    moe_serve_phase(api, params, calls, bm, pa, da, identities=False)
+    del api, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return err
+
+
+def moe_phases(bm, pa, da, fa, device):
+    """Phases 15-19 after the kernel cases: dbrx-132b (serve, prefill),
+    the fp32 check and the MoE DAG, kimi-k2, the CLI.  Returns the
+    branch_matmul launches of the dbrx serve run (the MoE main path) and
+    the max abs err of the prefill MoE checks."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("dbrx-132b"),
+                              num_layers=DBRX_LAYERS)
+    t0 = time.perf_counter()
+    api = build_model(cfg, device=device)
+    params = api.init(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"model: {cfg.name} full width, {cfg.num_layers} of 40 layers, "
+        f"d_model {cfg.d_model}, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.num_experts_per_tok}, {n_params / 1e9:.2f} B params in "
+        f"{api.dtype} (router fp32), init {time.perf_counter() - t0:.1f} s")
+    calls = count_calls(api)
+    launched = moe_serve_phase(api, params, calls, bm, pa, da)
+    err = moe_prefill_phase(api, params, bm, fa, device)
+    step_profile(api, params, device, (
+        ("branch_matmul", bm.launches),
+        ("paged_decode_attention", pa.launches),
+        ("decode_attention", da.launches)))
+    del api, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_fp32_phase(bm, device)
+    err = max(err, kimi_phase(bm, pa, da, fa, device))
+
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.serve import serve
+    done = serve("dbrx-132b", engine_mode="continuous")
+    if not all(c.ok for c in done.values()):
+        raise AssertionError("CLI serve did not complete every request")
+    log(f"cli: serve('dbrx-132b', engine_mode='continuous') completed "
+        f"{len(done)} requests")
+    argv = ["--arch", "kimi-k2-1t-a32b", "--requests", "4", "--max-new",
+            "8"]
+    log(f"cli: python -m repro_torch.launch.serve {' '.join(argv)}")
+    serve_main(argv)
+    return launched, err
 
 
 def count_calls(api):
@@ -1957,9 +2520,15 @@ def main() -> int:
 
     gc.collect()                   # the CLI's model, before the planner
     torch.cuda.empty_cache()
-    main_launches["branch_matmul"] = planner_kernel_path(bm, device)
+    planner_kernel_path(bm, device)
     planner_model_dag(device)
     main_launches["ssd_scan"] = mamba_phases(ss, count_calls, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    e_moe, timing["branch_matmul"] = moe_kernel_phase(bm, device)
+    main_launches["branch_matmul"], e_prefill = moe_phases(bm, pa, da, fa,
+                                                           device)
+    err["branch_matmul"] = max(err["branch_matmul"], e_moe, e_prefill)
 
     rows = []
     for name, meta in KERNELS.items():

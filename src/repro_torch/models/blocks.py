@@ -1,13 +1,13 @@
-"""Decoder blocks: attention / Mamba mixer + dense-MLP / no channel mix.
+"""Decoder blocks: attention / Mamba mixer + dense-MLP / MoE channel mix.
 
 Port of ``repro.models.blocks``.  A block's *kind* is ``(mixer,
 channel)`` with mixer in {"attn", "mamba"} and channel in {"dense",
 "moe", "none"}; :func:`block_pattern` and :func:`split_pattern` are
-copied as they are.  Attention and Mamba2 mixers, the dense MLP and the
-mixer-only block (``"none"``, mamba2) are ported, for the full-sequence
-forward (:func:`apply_block`) and the decode step on a dense or a paged
-cache (:func:`decode_block`), in any interleave (the Jamba hybrid needs
-only its MoE channel); MoE blocks raise until their slice.
+copied as they are.  Every mixer and channel is ported, for the
+full-sequence forward (:func:`apply_block`) and the decode step on a
+dense or a paged cache (:func:`decode_block`), in any interleave.  An
+MoE channel runs ``moe_dense`` or ``moe_ragged`` as the caller's
+``moe_impl`` says (``models.model._moe_impl_for``, as in JAX).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from .attention import (Attention, decode_step_attention, init_kv_cache,
                         init_paged_kv_cache, self_attention)
 from .common import Norm, norm
 from .mlp import MLP, mlp
+from .moe import MoE, moe_dense, moe_ep, moe_ragged
 from .ssm import Mamba, init_mamba_cache, mamba_block, mamba_decode_step
 
 
@@ -55,16 +56,9 @@ def split_pattern(pattern):
     return n, 1                                    # fully unrolled fallback
 
 
-def _check_kind(kind):
-    if kind[1] == "moe":
-        raise NotImplementedError(
-            "'moe' channel mix arrives with the MoE slice")
-
-
 class Block(nn.Module):
     def __init__(self, cfg, kind, gen, device, dtype):
         super().__init__()
-        _check_kind(kind)
         mixer, channel = kind
         self.kind = kind
         self.norm1 = Norm(cfg.d_model, cfg.norm_type, device)
@@ -72,8 +66,11 @@ class Block(nn.Module):
             self.attn = Attention(cfg, gen, device, dtype)
         else:
             self.mamba = Mamba(cfg, gen, device, dtype)
-        if channel == "dense":
+        if channel != "none":
             self.norm2 = Norm(cfg.d_model, cfg.norm_type, device)
+        if channel == "moe":
+            self.moe = MoE(cfg, gen, device, dtype)
+        elif channel == "dense":
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, gen, device,
                            dtype)
 
@@ -82,31 +79,45 @@ def init_block(gen, cfg, kind, device, dtype) -> Block:
     return Block(cfg, kind, gen, device, dtype)
 
 
-def _channel_mix(params: Block, x):
-    if params.kind[1] == "none":
-        return x
-    return x + mlp(params.mlp, norm(params.norm2, x))
+def _channel_mix(params: Block, cfg, x, moe_impl):
+    """x + channel mix -> (x, aux loss); an MoE channel flattens (B, S, d)
+    to (B*S, d) tokens for ``moe_impl`` ("dense", "ragged" or "ep")."""
+    channel = params.kind[1]
+    if channel == "none":
+        return x, 0.0
+    h = norm(params.norm2, x)
+    if channel == "dense":
+        return x + mlp(params.mlp, h), 0.0
+    B, S, d = h.shape
+    flat = h.reshape(B * S, d)
+    if moe_impl == "dense":
+        y, aux = moe_dense(params.moe, cfg, flat)
+    elif moe_impl == "ep":
+        y, aux = moe_ep(params.moe, cfg, flat)
+    else:
+        y, aux = moe_ragged(params.moe, cfg, flat)
+    return x + y.reshape(B, S, d), aux
 
 
-def apply_block(params: Block, cfg, x, positions=None, window=None):
-    """Full-sequence (prefill) block.  x: (B, S, d) -> (x, aux loss 0).
+def apply_block(params: Block, cfg, x, positions=None, window=None,
+                moe_impl="ragged"):
+    """Full-sequence (prefill) block.  x: (B, S, d) -> (x, aux loss).
 
-    The JAX block also takes the MoE implementation and a mesh; MoE
-    blocks raise at init here, until the MoE slice."""
+    The JAX block also takes a mesh, for ``moe_ep``; the port has no
+    mesh yet (ROADMAP §1 item 7)."""
     h = norm(params.norm1, x)
     if params.kind[0] == "attn":
         y = self_attention(params.attn, cfg, h, positions, causal=True,
                            window=window)
     else:
         y = mamba_block(params.mamba, cfg, h)
-    return _channel_mix(params, x + y), 0.0
+    return _channel_mix(params, cfg, x + y, moe_impl)
 
 
 def init_block_cache(cfg, kind, batch, max_len, dtype, device, ring=False,
                      tile=16):
     """A dense per-row KV cache (see attention.init_kv_cache), or a
     Mamba layer's per-row SSM state and conv window."""
-    _check_kind(kind)
     if kind[0] == "mamba":
         return init_mamba_cache(cfg, batch, dtype, device)
     return init_kv_cache(cfg, batch, max_len, dtype, device, ring=ring,
@@ -117,14 +128,13 @@ def init_paged_block_cache(cfg, kind, batch, num_blocks, block_size, dtype,
                            device):
     """One physical block pool per attention layer (no batch axis: rows
     share it through block tables); SSM state stays per-row."""
-    _check_kind(kind)
     if kind[0] == "mamba":
         return init_mamba_cache(cfg, batch, dtype, device)
     return init_paged_kv_cache(cfg, num_blocks, block_size, dtype, device)
 
 
 def decode_block(params: Block, cfg, x, cache, cache_len, active=None,
-                 block_tables=None):
+                 block_tables=None, moe_impl="ragged"):
     """Single-token decode block.  x: (B, 1, d).
 
     ``cache`` is a dense or a paged KV cache (see
@@ -135,7 +145,8 @@ def decode_block(params: Block, cfg, x, cache, cache_len, active=None,
     new, old)``); ``block_tables`` (B, blocks_per_seq) routes the paged
     pools and is ignored by dense and Mamba caches.  ``active`` and a
     vector ``cache_len`` are device tensors that the decode megastep
-    advances per row without a host round trip.
+    advances per row without a host round trip.  An MoE channel routes
+    every row, active or not, as in JAX; its aux loss is dropped.
     """
     h = norm(params.norm1, x)
     if params.kind[0] == "attn":
@@ -149,4 +160,5 @@ def decode_block(params: Block, cfg, x, cache, cache_len, active=None,
                 active.reshape((-1,) + (1,) * (t.ndim - 1)), t,
                 cache[name]) for name, t in new.items()}
         cache = new
-    return _channel_mix(params, x + y), cache
+    x, _aux = _channel_mix(params, cfg, x + y, moe_impl)
+    return x, cache

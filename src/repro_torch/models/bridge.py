@@ -11,13 +11,15 @@ dicts and lists::
 :func:`params_from_numpy` unstacks ``period`` into the port's flat
 per-layer list (layer ``prefix + r * period + j`` is entry ``j`` of the
 period at index ``r``) and copies every leaf into an :class:`~repro_torch
-.models.transformer.LM`, by name: a block's ``attn``/``mlp`` leaves, or
-its ``mamba`` leaves (``in_proj``, ``conv_w``, ``conv_b``, ``A_log``,
+.models.transformer.LM`, by name: a block's ``attn``/``mlp`` leaves, its
+``mamba`` leaves (``in_proj``, ``conv_w``, ``conv_b``, ``A_log``,
 ``D``, ``dt_bias``, ``norm_scale``, ``out_proj``) into the same-named
-parameters of :class:`~repro_torch.models.ssm.Mamba`, each cast to the
-parameter's dtype (JAX's fp32 masters become bf16 copies where the port
-stores the model dtype).  Nothing here imports JAX: only numpy arrays
-cross.
+parameters of :class:`~repro_torch.models.ssm.Mamba`, or its ``moe``
+leaves (``router``, ``w_gate``, ``w_up``, ``w_down`` and the shared
+expert's ``shared.*``) into :class:`~repro_torch.models.moe.MoE`, each
+cast to the parameter's dtype (JAX's fp32 masters become bf16 copies
+where the port stores the model dtype; the router stays fp32, as JAX
+reads it).  Nothing here imports JAX: only numpy arrays cross.
 """
 
 from __future__ import annotations

@@ -35,7 +35,9 @@ def dense_init(gen, shape, device, dtype, in_axis=-2):
     ``dtype`` (the JAX package keeps fp32 masters and casts at every use,
     which gives the same values)."""
     fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
-    return (_normal(gen, shape, device) / np.sqrt(fan_in)).to(dtype)
+    w = _normal(gen, shape, device)
+    w /= np.sqrt(fan_in)           # in place: one fp32 copy at a time
+    return w.to(dtype)
 
 
 def embed_init(gen, shape, device, dtype):

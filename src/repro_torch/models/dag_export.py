@@ -17,7 +17,10 @@ copied); any other dtype is converted to fp32 once.  As in the JAX
 exporter, the QKV biases of the Qwen2 family are not exported.  A Mamba2
 mixer is a 4-node chain whose SSD scan node is marked unsupported (the
 paper's "unsupported kernel" fallback class) and runs the ``ssd_scan``
-kernel.  MoE blocks and the Whisper encoder arrive with their slices.
+kernel.  An MoE channel is a router node marked unsupported (data-
+dependent top-k dispatch), E parallel two-node expert chains (the §3.1
+β-balanced branches) and a combine.  The Whisper encoder arrives with
+its slice.
 """
 
 from __future__ import annotations
@@ -138,7 +141,7 @@ def _export_block(b, cfg, bp, x, kind, layer_i, B, S, positions, fc=None):
     if channel == "dense":
         y2 = _export_mlp(b, cfg, bp.mlp, h2, layer_i, B, S, fc)
     else:
-        y2 = _export_moe(b, cfg, None, h2, layer_i, B, S, fc)
+        y2 = _export_moe(b, cfg, bp.moe, h2, layer_i, B, S, fc)
     return b.op(f"L{layer_i}.residual2", "elementwise", [x, y2],
                 [TensorSpec((B, S, d))],
                 flops=elementwise_flops(B * S * dF), fn=lambda a, c: a + c)
@@ -259,9 +262,65 @@ def _export_mlp(b, cfg, mp, h, layer_i, B, S, fc=None):
 
 
 def _export_moe(b, cfg, mp, h, layer_i, B, S, fc=None):
-    raise NotImplementedError(
-        "MoE blocks (router fallback + per-expert branches) arrive with "
-        "the MoE slice")
+    """Router (dynamic -> fallback) + per-expert 2-node branches.
+
+    The router's top-k is a control_flow op (unsupported: data-dependent
+    dispatch); each expert is a delegate-eligible chain — exactly the
+    heterogeneous mix Parallax targets.  Every expert node computes on
+    every token (the combine weights the non-routed ones by 0), as the
+    JAX exporter does; the shared expert, which JAX's exporter leaves
+    out, is left out here too."""
+    fc = fc or cfg
+    m = cfg.moe
+    d, ff = cfg.d_model, m.d_ff_expert
+    dF, ffF = fc.d_model, fc.moe.d_ff_expert
+    E, k = m.num_experts, m.num_experts_per_tok
+    router_w = _f32(mp.router)
+
+    gates = b.op(
+        f"L{layer_i}.router", "control_flow", [h],
+        [TensorSpec((B, S, E))], flops=matmul_flops(S, E, dF, B),
+        supported=False,
+        fn=lambda x, w=router_w: _topk_gates(x, w, k))
+
+    # per-expert FLOPs at the *routed share* of tokens (k/E of them),
+    # matching how a runtime graph sees expert workloads.  gate+up are one
+    # fused node (attrs N=2 — converters fuse the SwiGLU pair) so each
+    # expert stays a clean Sequential chain of original-op count 3.
+    share = max(k / E, 1e-3)
+    w_gate, w_up, w_down = _f32(mp.w_gate), _f32(mp.w_up), _f32(mp.w_down)
+    outs = []
+    for e in range(E):
+        g1 = b.op(f"L{layer_i}.e{e}.gateup", "matmul", [h],
+                  [TensorSpec((B, S, ff))],
+                  flops=2 * matmul_flops(S, ffF, dF, B) * share,
+                  fn=lambda x, w=w_gate[e], w2=w_up[e]: F.silu(x @ w)
+                  * (x @ w2),
+                  N=2)
+        dn = b.op(f"L{layer_i}.e{e}.down", "matmul", [g1],
+                  [TensorSpec((B, S, d))],
+                  flops=matmul_flops(S, dF, ffF, B) * share,
+                  fn=lambda a, w=w_down[e]: a @ w)
+        outs.append(dn)
+
+    def combine(gates_, *expert_outs):
+        y = torch.zeros_like(expert_outs[0])
+        for e, eo in enumerate(expert_outs):
+            y = y + gates_[..., e:e + 1] * eo
+        return y
+
+    return b.op(f"L{layer_i}.moe_combine", "elementwise",
+                [gates] + outs, [TensorSpec((B, S, d))],
+                flops=elementwise_flops(B * S * dF * E), fn=combine)
+
+
+def _topk_gates(x, w, k):
+    """(B, S, d) -> (B, S, E) gates: the top-k softmax probabilities,
+    renormalised, at their experts; zero elsewhere."""
+    probs = torch.softmax(x @ w, dim=-1)
+    vals, idx = torch.topk(probs, k, dim=-1)
+    vals = vals / vals.sum(-1, keepdim=True).clamp(min=1e-9)
+    return torch.zeros_like(probs).scatter(-1, idx, vals)
 
 
 def _export_mamba(b, cfg, mp, h, layer_i, B, S, fc=None):

@@ -11,14 +11,17 @@ Port of ``repro.models.model`` for the decoder family::
 
 ``build_model`` runs on ``cuda`` unless ``device="cpu"`` is passed, and
 raises without a card.  It serves the decoder family: ``arch_type``
-``dense`` and ``ssm`` (mamba2: Mamba2 mixers with no channel mix, whose
-caches are per-row SSM state and conv windows, on the dense and the
-paged path alike; ``prefill_fn`` needs S to be a multiple of
-``cfg.ssm.chunk``), and hybrids of the two mixers.  Weights are stored
-in ``cfg.dtype`` (or ``dtype``); norm parameters and the SSM's
-``A_log``, ``D`` and ``dt_bias`` stay fp32.  ``loss_fn`` arrives with
-the training slice, MoE blocks with the MoE slice, encoder-decoder
-models with the Whisper slice.
+``dense``, ``moe`` (an MoE channel mix in the layers ``cfg.is_moe_layer``
+names, optionally with a shared expert, through ``moe_dense`` for up to
+4 experts and ``moe_ragged`` on the ``branch_matmul`` kernel above that,
+as :func:`_moe_impl_for` picks and JAX picks) and ``ssm`` (mamba2:
+Mamba2 mixers with no channel mix, whose caches are per-row SSM state
+and conv windows, on the dense and the paged path alike;
+``prefill_fn`` needs S to be a multiple of ``cfg.ssm.chunk``), and
+hybrids of the two mixers.  Weights are stored in ``cfg.dtype`` (or
+``dtype``); norm parameters, the MoE router and the SSM's ``A_log``,
+``D`` and ``dt_bias`` stay fp32.  ``loss_fn`` arrives with the training
+slice, encoder-decoder models with the Whisper slice.
 """
 
 from __future__ import annotations
@@ -48,10 +51,19 @@ class ModelAPI:
     init_paged_caches: Callable
 
 
+def _moe_impl_for(cfg, distributed: bool):
+    if cfg.moe.num_experts == 0:
+        return "ragged"
+    if not distributed:
+        return "dense" if cfg.moe.num_experts <= 4 else "ragged"
+    return "ep"
+
+
 def build_model(cfg, device=None, dtype=None) -> ModelAPI:
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             "encoder-decoder models arrive with the Whisper slice")
+    moe_impl = _moe_impl_for(cfg, distributed=False)
     device = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
 
@@ -68,13 +80,14 @@ def build_model(cfg, device=None, dtype=None) -> ModelAPI:
     def prefill_fn(params, batch):
         return transformer.prefill_lm(
             params, cfg, torch.as_tensor(batch["tokens"], device=device),
-            batch.get("frontend_embeds"), batch.get("positions3"))
+            batch.get("frontend_embeds"), batch.get("positions3"),
+            moe_impl=moe_impl)
 
     def decode_fn(params, caches, batch):
         return transformer.decode_lm(
             params, cfg, caches, batch["tokens"], batch["cache_len"],
             active=batch.get("active"),
-            block_tables=batch.get("block_tables"))
+            block_tables=batch.get("block_tables"), moe_impl=moe_impl)
 
     def init_caches(batch, max_len, cache_dtype=None, ring=False,
                     tile=16):

@@ -62,13 +62,15 @@ def embed_tokens(params: LM, cfg, tokens, frontend_embeds=None):
 
 
 def forward_lm(params: LM, cfg, tokens, frontend_embeds=None,
-               positions3=None, window=None):
+               positions3=None, window=None, moe_impl="ragged"):
     """Prefill forward.  Returns (hidden (B, S, d), aux_loss).
 
-    Every attention layer runs the ``flash_attention`` kernel and every
-    Mamba layer the ``ssd_scan`` kernel (their plain versions on CPU
-    tensors; a Mamba layer needs S to be a multiple of its chunk); MoE
-    blocks raise at init until the MoE slice, so the aux loss is 0."""
+    Every attention layer runs the ``flash_attention`` kernel, every
+    Mamba layer the ``ssd_scan`` kernel and every MoE layer, under
+    ``moe_impl="ragged"``, three ``branch_matmul`` launches (their plain
+    versions on CPU tensors; a Mamba layer needs S to be a multiple of
+    its chunk).  The aux loss is the sum of the MoE layers' load-balance
+    losses (0.0 without MoE layers), as in JAX."""
     if positions3 is not None:
         raise NotImplementedError(
             "3-stream (M-RoPE) positions arrive with the Qwen2-VL slice")
@@ -76,17 +78,17 @@ def forward_lm(params: LM, cfg, tokens, frontend_embeds=None,
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux_total = 0.0
     for layer in params.layers:
-        x, aux = apply_block(layer, cfg, x, positions, window)
-        aux_total += aux
+        x, aux = apply_block(layer, cfg, x, positions, window, moe_impl)
+        aux_total = aux_total + aux
     return norm(params.final_norm, x), aux_total
 
 
 def prefill_lm(params: LM, cfg, tokens, frontend_embeds=None,
-               positions3=None, window=None):
+               positions3=None, window=None, moe_impl="ragged"):
     """Prefill: full forward returning last-token logits only (the full
     (B, S, V) logits tensor is never materialised)."""
     hidden, _ = forward_lm(params, cfg, tokens, frontend_embeds,
-                           positions3, window=window)
+                           positions3, window=window, moe_impl=moe_impl)
     return logits_last_token(params, cfg, hidden)
 
 
@@ -109,7 +111,7 @@ def init_paged_caches(cfg, batch, num_blocks, block_size, dtype, device):
 
 
 def decode_lm(params: LM, cfg, caches, tokens, cache_len, active=None,
-              block_tables=None):
+              block_tables=None, moe_impl="ragged"):
     """One decode step.  tokens: (B, 1) -> (logits (B, V), caches).
 
     ``cache_len`` is a scalar (every row at the same position) or (B,)
@@ -125,7 +127,7 @@ def decode_lm(params: LM, cfg, caches, tokens, cache_len, active=None,
     new = []
     for layer, cache in zip(params.layers, caches):
         x, cache = decode_block(layer, cfg, x, cache, cache_len, active,
-                                block_tables)
+                                block_tables, moe_impl)
         new.append(cache)
     hidden = norm(params.final_norm, x)
     return logits_last_token(params, cfg, hidden), new

@@ -1,9 +1,11 @@
 """Build the port's CUDA kernels for the CPU with g++.
 
-The CUDA sources in ``src/repro_torch/csrc/`` are rewritten in two small
-ways — a ``kernel<<<grid, block, smem, stream>>>(args)`` launch becomes a
-call of ``emu::launch``, and shared memory becomes one static buffer —
-and compiled against the stand-in headers in ``include/``, which run
+The CUDA sources in ``src/repro_torch/csrc/`` are rewritten in three
+small ways — a ``kernel<<<grid, block, smem, stream>>>(args)`` launch
+becomes a call of ``emu::launch``, shared memory becomes one static
+buffer, and inline-PTX ``cp.async`` copies, commits and waits become the
+stand-in's ``cuda_pipeline.h`` calls — and compiled against the
+stand-in headers in ``include/``, which run
 every CUDA thread of a block as a ``std::thread`` and the blocks of a
 grid in reverse launch order.  The libraries keep
 the kernels' C interface, so a test calls them with CPU tensors exactly
@@ -21,6 +23,15 @@ from pathlib import Path
 INCLUDE = Path(__file__).resolve().parent / "include"
 CSRC = Path(__file__).resolve().parents[2] / "src" / "repro_torch" / "csrc"
 _LAUNCH = re.compile(r"<<<(.*?)>>>\(", re.S)
+# inline PTX of cp.async: [dst], [src], copy size, source bytes (the rest
+# zero-filled); commit_group; wait_group N
+_CP_ASYNC = re.compile(
+    r'asm volatile\("cp\.async\.c[ag]\.shared\.global \[%0\], \[%1\], '
+    r'(\d+), %2;\\n"\s*::\s*"r"\(smem_u32\((\w+)\)\),\s*"l"\((\w+)\),'
+    r'\s*"r"\((\w+)\)\);')
+_CP_COMMIT = re.compile(r'asm volatile\("cp\.async\.commit_group;\\n" ::\);')
+_CP_WAIT = re.compile(
+    r'asm volatile\("cp\.async\.wait_group %0;\\n" :: "n"\((\w+)\)\);')
 
 
 def available() -> bool:
@@ -52,6 +63,14 @@ def transform(text: str) -> str:
         "float* smem = reinterpret_cast<float*>(emu::shared_mem);")
     text = re.sub(r"__shared__ (\w+) (\w+(\[[^\]]*\])?);", r"static \1 \2;",
                   text)
+    if _CP_ASYNC.search(text):
+        text = _CP_ASYNC.sub(r"__pipeline_memcpy_async(\2, \3, \1, \1 - \4);",
+                             text)
+        text = _CP_COMMIT.sub("__pipeline_commit();", text)
+        text = _CP_WAIT.sub(r"__pipeline_wait_prior(\1);", text)
+        text = text.replace(
+            "static_cast<uint32_t>(__cvta_generic_to_shared(p))", "0")
+        text = '#include <cuda_pipeline.h>\n' + text
     out, i = [], 0
     while (m := _LAUNCH.search(text, i)) is not None:
         end = m.start()

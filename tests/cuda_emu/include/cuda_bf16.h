@@ -9,3 +9,7 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
   u += 0x7fffu + ((u >> 16) & 1u);
   return {(unsigned short)(u >> 16)};
 }
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline float __low2float(__nv_bfloat162 h) { return __bfloat162float(h.x); }
+inline float __high2float(__nv_bfloat162 h) { return __bfloat162float(h.y); }
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) { return {__float2bfloat16(a), __float2bfloat16(b)}; }

@@ -1,6 +1,6 @@
 // A CPU stand-in for the pieces of the CUDA runtime that the port's
-// kernels (the decode pair with csrc/decode_tile.cuh, ssd_scan and
-// paged_append) use, so that g++ can
+// kernels (the decode pair with csrc/decode_tile.cuh, ssd_scan,
+// paged_append and branch_matmul) use, so that g++ can
 // build them and run them on the CPU: one std::thread per CUDA thread,
 // the blocks of a grid one after another, __syncthreads and the warp
 // shuffles and votes as barriers over shared arrays.  It checks the
@@ -27,12 +27,17 @@ using std::min; using std::max;
 #define __launch_bounds__(...)
 
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
+struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
 struct float4 { float x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+// an H100's 132 SMs, so a kernel picks its launch shape as on the card
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 132; return cudaSuccess; }
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <typename F> inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }

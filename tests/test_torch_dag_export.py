@@ -132,10 +132,28 @@ def test_later_slices_raise():
         export_graph(cfg, None, 1, 16)
     with pytest.raises(NotImplementedError, match="Whisper slice"):
         export_encoder_graph(cfg, None, 1, 16)
-    from repro_torch.models import dag_export
+    # MoE blocks have landed (tests/test_torch_moe.py holds them to JAX):
+    # node by node equal to the JAX exporter's on a reduced MoE config
+    jax = pytest.importorskip("jax")
+    from repro.configs import get_config as jax_config
+    from repro.models import build_model as jax_build_model
+    from repro.models.dag_export import export_graph as jax_export
+    from repro_torch.models.bridge import params_from_numpy
 
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        dag_export._export_moe(None, cfg, None, None, 0, 1, 16)
+    japi = jax_build_model(jax_config("dbrx-132b").reduced())
+    jparams = japi.init(jax.random.key(0))
+    moe = get_config("dbrx-132b").reduced()
+    lm = params_from_numpy(moe, jax.tree.map(np.asarray, jparams),
+                           device="cpu")
+    gj, _ = jax_export(japi.cfg, jparams, 1, 16)
+    gt, _ = export_graph(moe, lm, 1, 16)
+    assert [(n.name, n.op_class, n.flops, n.supported)
+            for n in gt.nodes.values()] == [
+        (n.name, n.op_class, n.flops, n.supported)
+        for n in gj.nodes.values()]
+    routers = [n for n in gt.nodes.values() if n.name.endswith(".router")]
+    assert len(routers) == moe.num_layers
+    assert not any(n.supported for n in routers)
     # Mamba2 mixers have landed (tests/test_torch_mamba.py holds them to
     # the JAX exporter): four nodes a layer, the scan a fallback node
     from repro_torch.models import build_model

@@ -113,11 +113,13 @@ def test_paged_decode_matches_jax_model(models):
 
 def test_dense_and_scalar_paths_wait_for_their_slice(models):
     """The dense and scalar paths have landed (tests/
-    test_torch_dense_serving.py), and Mamba blocks (tests/
-    test_torch_mamba.py); what still waits: a paged cache takes no scalar
-    cache_len (JAX's error), the loss waits for the training slice, MoE
-    blocks for theirs.  mamba2 builds: Mamba2 mixers with no channel
-    mix, and per-row state (not a block pool) in its paged caches."""
+    test_torch_dense_serving.py), Mamba blocks (tests/
+    test_torch_mamba.py) and MoE blocks (tests/test_torch_moe.py); what
+    still waits: a paged cache takes no scalar cache_len (JAX's error),
+    the loss waits for the training slice.  dbrx builds attention + MoE
+    blocks with an fp32 router; mamba2 builds Mamba2 mixers with no
+    channel mix, and per-row state (not a block pool) in its paged
+    caches."""
     _, _, tapi, tparams = models
     caches = tapi.init_paged_caches(B, B * BPR, BS)
     batch = {"tokens": torch.zeros(B, 1, dtype=torch.int32),
@@ -126,9 +128,11 @@ def test_dense_and_scalar_paths_wait_for_their_slice(models):
         tapi.decode_fn(tparams, caches, batch)
     with pytest.raises(NotImplementedError, match="training"):
         tapi.loss_fn(tparams, batch)
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        build_model(get_config("dbrx-132b").reduced(), device="cpu") \
-            .init(None)
+    # MoE blocks have landed (tests/test_torch_moe.py holds them to JAX)
+    dbrx = build_model(get_config("dbrx-132b").reduced(), device="cpu") \
+        .init(None)
+    assert [layer.kind for layer in dbrx.layers] == [("attn", "moe")] * 2
+    assert dbrx.layers[0].moe.router.dtype == torch.float32
     cfg = get_config("mamba2-370m").reduced()
     api = build_model(cfg, device="cpu")
     lm = api.init(None)

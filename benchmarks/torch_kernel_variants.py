@@ -18,7 +18,15 @@ this one card.
 - ``flash_attention`` with 8 warps (128 query rows) a block instead of 4;
 - ``branch_matmul``: block tile, depth and ring length, each of ``TILES``
   at the planner's two fp32 sites, beside ``torch.bmm``, and whether the
-  result equals ``torch.bmm`` bit for bit;
+  result equals ``torch.bmm`` bit for bit; in bf16 (the tensor-core
+  kernel), each of ``BF16_TILES`` (rows 16, 64 or 128, depth, ring
+  length, warps) at the MoE shapes — dbrx-132b and kimi-k2 gate/up at a
+  decode step (capacity 8) and at a prefill (T = 2048), with the per-group
+  row counts of a top-k routing (router logits skewed per expert, so
+  groups are uneven as in ``chip_smoke.py``'s prefill) — beside the
+  shipped tile for that capacity, ``torch.bmm`` and the routed-work
+  bound, and whether each equals the shipped kernel bit for bit (each
+  must: every tile runs the same m16n8k16 steps in the same order);
 - ``branch_matmul``'s output allocated with deterministic mode's NaN fill
   (``torch.empty`` as it comes) against without it (the shipped
   ``kernels._args.unfilled``);
@@ -97,6 +105,22 @@ TILES = ((64, 64, 16, 8, 4, 3), (32, 64, 32, 4, 4, 2), (32, 64, 16, 4, 8, 3),
          (32, 64, 16, 4, 4, 3), (32, 32, 16, 4, 4, 3), (64, 64, 16, 4, 4, 3),
          (64, 64, 16, 4, 8, 3), (128, 64, 16, 8, 4, 3),
          (64, 128, 16, 8, 4, 3))
+# bf16 tiles: BM, BN, BK, warps over rows, warps over columns, stages,
+# blocks an SM (the shipped three first: decode, 64 rows, 128 rows)
+BF16_TILES = ((16, 128, 64, 1, 4, 4, 2), (64, 128, 32, 2, 2, 4, 4),
+              (128, 128, 32, 2, 4, 4, 2), (16, 128, 64, 1, 4, 3, 3),
+              (16, 128, 128, 1, 4, 2, 2), (16, 64, 64, 1, 4, 4, 4),
+              (64, 128, 32, 2, 2, 3, 4), (64, 128, 64, 2, 2, 3, 2),
+              (128, 128, 32, 2, 4, 3, 2), (128, 128, 64, 2, 4, 3, 2),
+              (64, 128, 32, 1, 2, 4, 4), (64, 128, 64, 1, 2, 3, 2),
+              (128, 128, 32, 2, 2, 4, 2), (128, 128, 64, 2, 2, 3, 2),
+              (128, 256, 32, 2, 4, 3, 1), (256, 128, 32, 4, 2, 3, 1))
+# MoE shapes: label, experts, top-k, T, K, N (gate/up; down swaps K, N)
+MOE_SHAPES = (("dbrx decode", 16, 4, 8, 6144, 10752),
+              ("kimi decode", 384, 8, 8, 7168, 2048),
+              ("dbrx prefill", 16, 4, 2048, 6144, 10752),
+              ("kimi prefill", 384, 8, 2048, 7168, 2048))
+ROUTER_SKEW = 0.5          # std of a per-expert bias on the router logits
 
 
 # the decode kernels: one split length for every launch shape (the
@@ -268,16 +292,30 @@ def patched(name, patches, suffix=".cu"):
 
 def tile_harness():
     """A library with ``variant(x, w, out, G, M, K, N, tile, stream)``
-    launching the fp32 kernel at ``TILES[tile]``."""
+    launching the fp32 kernel at ``TILES[tile]``, and ``variant_bf16(x,
+    w, out, counts, G, M, K, N, tile, stream)`` the bf16 kernel at
+    ``BF16_TILES[tile]``."""
     cases = "".join(
-        f"    case {i}: return launch<float, Tile<{', '.join(map(str, t))}>>"
-        f"(x, w, out, G, M, K, N, vec, s);\n" for i, t in enumerate(TILES))
+        f"    case {i}: return launch<Tile<{', '.join(map(str, t))}>>"
+        f"(x, w, out, nullptr, G, M, K, N, vec, s);\n"
+        for i, t in enumerate(TILES))
+    bf16_cases = "".join(
+        f"    case {i}: return tc::launch<tc::Tile<"
+        f"{', '.join(map(str, t))}>>(x, w, out, c, G, M, K, N, vec, s);\n"
+        for i, t in enumerate(BF16_TILES))
     return (f'#include "{os.path.join(CSRC, "branch_matmul.cu")}"\n'
             'extern "C" int variant(const void* x, const void* w, void* out,'
             ' int G, int M, int K, int N, int tile, void* stream) {\n'
             '  cudaStream_t s = static_cast<cudaStream_t>(stream);\n'
             '  const int vec = K % 4 == 0 && N % 4 == 0;\n'
-            '  switch (tile) {\n' + cases + '  }\n  return -1;\n}\n')
+            '  switch (tile) {\n' + cases + '  }\n  return -1;\n}\n'
+            'extern "C" int variant_bf16(const void* x, const void* w, '
+            'void* out, const void* counts, int G, int M, int K, int N, '
+            'int tile, void* stream) {\n'
+            '  cudaStream_t s = static_cast<cudaStream_t>(stream);\n'
+            '  const int* c = static_cast<const int*>(counts);\n'
+            '  const int vec = K % 8 == 0 && N % 8 == 0;\n'
+            '  switch (tile) {\n' + bf16_cases + '  }\n  return -1;\n}\n')
 
 
 def build(sources):
@@ -467,6 +505,56 @@ def gemm_variants(harness, device, flush):
         print(f"branch_matmul fp32 {site} G={G} M={M} K={K} N={N}, ms "
               f"(tile BM, BN, BK, TM, TN, stages; bit-identical to torch.bmm"
               f" unless marked): " + "; ".join(row), flush=True)
+
+
+def moe_gemm_variants(harness, device, flush):
+    """Each of ``BF16_TILES`` at ``MOE_SHAPES`` (gate/up) with a top-k
+    routing's counts, against the shipped kernel's bits and time."""
+    from repro_torch.kernels import branch_matmul as bm
+    from repro_torch.models.moe import Buckets
+
+    fn = harness.variant_bf16
+    fn.argtypes = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5 \
+        + (ctypes.c_void_p,)
+    fn.restype = ctypes.c_int
+    gen = torch.Generator(device=device).manual_seed(5)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for label, E, k, T, K, N in MOE_SHAPES:
+        logits = torch.randn((T, E), generator=gen, device=device) \
+            + ROUTER_SKEW * torch.randn((E,), generator=gen, device=device)
+        b = Buckets(torch.topk(logits, k, -1).indices, E)
+        M = b.cap
+        counts = b.counts.clamp(max=M).int()
+        x = torch.randn((E, M, K), generator=gen, device=device,
+                        dtype=torch.bfloat16)
+        w = torch.randn((E, K, N), generator=gen, device=device,
+                        dtype=torch.bfloat16).mul_(1 / (2 * np.sqrt(K)))
+        want = bm.branch_matmul(x, w, counts)
+        out = torch.empty_like(want)
+        bound, by = cs.gemm_routed_bound(M, K, N, torch.bfloat16, counts)
+        shipped = cs.median_ms(lambda: bm.branch_matmul(x, w, counts), flush,
+                               10)
+        bmm = cs.median_ms(lambda: torch.bmm(x, w), flush, 10)
+        row = [f"shipped {shipped:.4f}", f"torch.bmm {bmm:.4f}",
+               f"routed-work bound {bound:.5f} ({by})"]
+        for i, tile in enumerate(BF16_TILES):
+            def launch():
+                return fn(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                          counts.data_ptr(), E, M, K, N, i, stream)
+            if launch() != 0:
+                raise RuntimeError(f"bf16 tile {tile}: launch failed")
+            torch.cuda.synchronize()
+            row.append(f"{tile} {cs.median_ms(launch, flush, 10):.4f}"
+                       f"{'' if torch.equal(out, want) else ' (DIFFERS)'}")
+        print(f"branch_matmul bf16 {label} gate/up G={E} M={M} K={K} N={N}"
+              f", counts {int(counts.min())}-{int(counts.max())} "
+              f"({int(counts.sum())} routed rows, {int((counts > 0).sum())}"
+              f" groups with a row), ms (tile BM, BN, BK, warps over rows, "
+              f"over columns, stages, blocks an SM; bit-identical to the "
+              f"shipped kernel unless marked): " + "; ".join(row),
+              flush=True)
+        del x, w, want, out
+        torch.cuda.empty_cache()
 
 
 def decode_shapes(device):
@@ -678,6 +766,7 @@ def main() -> int:
                     flush)
     flash_variants(libs, device, flush)
     gemm_variants(libs["branch_matmul_tiles"], device, flush)
+    moe_gemm_variants(libs["branch_matmul_tiles"], device, flush)
     prefill_variants(libs, device)
     return 0
 

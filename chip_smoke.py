@@ -19,11 +19,15 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    h2o-danube's GQA window case (T=8192), every row full, timed beside the
    bound at the three shapes; ``branch_matmul`` against its plain version
    at the planner path's two sites (G=6, M=512, K=2560, N=240 and G=6,
-   M=512, K=80, N=2560) in fp32 and bf16, and a ragged
-   ``parallel_branches`` case (same tolerances; two launches
-   bit-identical; per fp32 site, whether the kernel equals ``torch.bmm``
-   bit for bit); median times by CUDA events beside the bound and, for
-   ``branch_matmul``, ``torch.bmm``; ``decode_attention`` on the model's
+   M=512, K=80, N=2560) in fp32 (CUDA cores) and bf16 (tensor cores),
+   each also with per-group row counts (0 to M: rows below each count
+   bit-identical to the launch without counts, rows past it exact
+   zeros), and a ragged ``parallel_branches`` case (same tolerances; two
+   launches bit-identical; per site, whether the kernel equals
+   ``torch.bmm`` bit for bit); median times by CUDA events beside the
+   bound and, for ``branch_matmul``, ``torch.bmm`` and, with counts,
+   ``torch._grouped_mm`` on the routed rows where this torch has it and
+   the routed-work bound; ``decode_attention`` on the model's
    ``(B, T, K, D)`` cache at the dense path's shape (B=8, H=K=32, D=80,
    T=160, tile 16) in bf16 and fp32, a GQA + window case at
    h2o-danube-3-4b widths (32/8 heads, D=120, window 4096, T=8192), a ring
@@ -119,10 +123,15 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 14. MoE kernel cases: ``branch_matmul`` in bf16 at the MoE decode
     path's shapes — dbrx-132b (16 experts, d_model 6144, d_ff 10752) and
     kimi-k2 (384 experts, d_model 7168, d_ff 2048) at capacity 8 (B=8) —
-    each against its plain version at 2e-2, bit-identical on a second
-    launch and with 40 more rows a group (the same rows at another
-    capacity), timed beside its bound and one ``torch.bmm`` call on the
-    same padded tensors (the prefill shapes follow in 16 and 18);
+    each twice, with every row counted and with the per-expert counts
+    of a top-k routing of 8 tokens (the path's), each against its plain
+    version with the same counts at 2e-2, bit-identical on a second
+    launch, with 40 more rows a group (the same rows at another
+    capacity, on another tile) and, below the counts, to the launch
+    without counts, rows past the counts exact zeros; timed beside its
+    padded and routed-work bounds, one ``torch.bmm`` call on the same
+    padded tensors and one ``torch._grouped_mm`` call on the routed rows
+    (the prefill shapes follow in 16 and 18);
 15. dbrx-132b serve: full width, 8 of its 40 layers (54.6 GB of bf16
     weights; random, from ``torch.Generator`` seed 0; router fp32), the
     8-request workload through ``ContinuousEngine`` (paged, megastep 8,
@@ -134,9 +143,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 16. dbrx-132b ``prefill_fn`` at B=1, S=2048: 24 ``branch_matmul`` and 8
     ``flash_attention`` launches a call; layer 0's MoE at its own inputs
     against ``moe_ragged`` with ``branch_matmul_plain`` patched in (2e-2,
-    routing equal), its dropless capacity printed, and its three
-    ``branch_matmul`` launches at that capacity on its bucketed rows as
-    in 14; the logits against the plain-GEMM call (normwise 2e-2, the
+    routing equal), its dropless capacity and its rows in the buckets,
+    computed in row tiles and routed printed, and its three
+    ``branch_matmul`` launches at that capacity on its bucketed rows with
+    its counts as in 14; the logits against the plain-GEMM call (normwise 2e-2, the
     tokens routed to other experts counted per layer with their
     probability gaps); profiles of the call and of one decode step
     (dense and paged); then an fp32 model at full width, 2 layers, the
@@ -193,6 +203,7 @@ BPR = -(-MAX_CONTEXT // BS)        # blocks per row at that context
 SPIN_CYCLES = 2_000_000            # ~1 ms: covers one wrapper's host time
 
 BM_SITES = {"qkv": (6, 512, 2560, 240), "out": (6, 512, 80, 2560)}
+BM_COUNTS = (512, 300, 0, 17, 511, 256)     # per-group rows at the sites
 PLANNER_GRAPH = dict(dim=2560, heads=32, seq=512)
 DAG_BATCH, DAG_SEQ = 1, 256
 DAG_LAYERS = 16                    # planner B's stablelm-3b depth (of 32)
@@ -249,11 +260,11 @@ MOE_PREFILL_RUNS = 2               # timed prefill_fn calls (~1-2 s each)
 MOE_DAG_SEQ = 128
 MOE_KERNEL_ITERS = 10              # timed launches per MoE kernel case
 MOE_EXTRA_ROWS = 40                # the same rows at a second capacity
-MOE_CASES = (                      # label, G, M (capacity = B), K, N
-    ("dbrx decode gate/up", 16, B, 6144, 10752),
-    ("dbrx decode down", 16, B, 10752, 6144),
-    ("kimi decode gate/up", 384, B, 7168, 2048),
-    ("kimi decode down", 384, B, 2048, 7168),
+MOE_CASES = (                      # label, G, M (capacity = B), K, N, top-k
+    ("dbrx decode gate/up", 16, B, 6144, 10752, 4),
+    ("dbrx decode down", 16, B, 10752, 6144, 4),
+    ("kimi decode gate/up", 384, B, 7168, 2048, 8),
+    ("kimi decode down", 384, B, 2048, 7168, 8),
 )
 
 KERNELS = {
@@ -1169,18 +1180,37 @@ def device_profile(label, fn, n, bound, wrappers=()):
         log(f"step:   {family}: {ms:.3f} ms ({ms / busy:.1%} of busy)")
 
 
+def routed_weight_bytes(params, fn):
+    """The weight bytes one call of ``fn`` must read when each MoE layer
+    reads only the experts its tokens were routed to (the kernel skips
+    the others): every other weight, plus each layer's routed experts'
+    gate, up and down matrices."""
+    moes = [layer.moe for layer in params.layers if layer.kind[1] == "moe"]
+    total = sum(p.numel() * p.element_size() for p in params.parameters())
+    experts = sum(p.numel() * p.element_size() for m in moes
+                  for p in (m.w_gate, m.w_up, m.w_down))
+    with torch.no_grad(), RoutingRecorder() as rec:
+        fn()
+    per_expert = experts // (len(moes) * moes[0].w_gate.shape[0])
+    routed = sum(ids.unique().numel() for ids, _ in rec.calls)
+    return total - experts + routed * per_expert
+
+
 def step_profile(api, params, device, wrappers=()):
-    """One full-width ``decode_fn`` call (B=8, every row at position 100)
-    through :func:`device_profile`, on the paged pool and, for a model
-    that attends, on the dense cache (MAX_CONTEXT slots a row); the
-    weight bytes over the memory rate bound the step from below."""
+    """One full-width ``decode_fn`` call (B=8 distinct seeded tokens,
+    every row at position 100) through :func:`device_profile`, on the
+    paged pool and, for a model that attends, on the dense cache
+    (MAX_CONTEXT slots a row); the weight bytes the call must read (in a
+    MoE model, the routed experts' only) over the memory rate bound the
+    step from below."""
+    tokens = torch.tensor(np.random.default_rng(5).integers(
+        0, api.cfg.vocab_size, (B, 1)), dtype=torch.int32, device=device)
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in params.parameters())
     bound = (weight_bytes / HBM_BYTES_PER_S * 1e3, "weight-read")
     if api.cfg.num_heads:
         dense = api.init_caches(B, MAX_CONTEXT, tile=BS)
-        at100 = {"tokens": torch.zeros(B, 1, dtype=torch.int32,
-                                       device=device),
+        at100 = {"tokens": tokens,
                  "cache_len": torch.full((B,), 100, dtype=torch.int32,
                                          device=device)}
         device_profile(f"full-width {api.cfg.name} dense decode_fn (B=8, "
@@ -1189,12 +1219,18 @@ def step_profile(api, params, device, wrappers=()):
                        bound, wrappers)
         del dense
     caches = api.init_paged_caches(B, B * BPR, BS)
-    batch = {"tokens": torch.zeros(B, 1, dtype=torch.int32, device=device),
+    batch = {"tokens": tokens,
              "cache_len": torch.full((B,), 100, dtype=torch.int32,
                                      device=device),
              "active": torch.ones(B, dtype=torch.bool, device=device),
              "block_tables": torch.arange(B * BPR, dtype=torch.int32,
                                           device=device).reshape(B, BPR)}
+    if api.cfg.moe is not None and any(
+            layer.kind[1] == "moe" for layer in params.layers):
+        routed = routed_weight_bytes(
+            params, lambda: api.decode_fn(params, caches, batch))
+        bound = (routed / HBM_BYTES_PER_S * 1e3,
+                 "weight-read (routed experts)")
     device_profile(f"full-width {api.cfg.name} decode_fn (B=8, position "
                    f"100)", lambda: api.decode_fn(params, caches, batch), 5,
                    bound, wrappers)
@@ -1249,51 +1285,195 @@ def gemm_bound(G, M, K, N, dtype):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def gemm_case(bm, label, x, w, flush, iters=50, extra=None):
-    """``branch_matmul`` on (x, w) against its plain version at the
-    dtype's tolerance and bit for bit against a second launch and, with
-    ``extra`` rows (G, m, K), against the same rows at capacity M + m;
-    timed beside its plain version, one ``torch.bmm`` call and its bound.
-    Returns dict(err, ms, plain_ms, library_ms, bound, bound_by)."""
+def gemm_routed_bound(M, K, N, dtype, counts):
+    """Least time for the same product with per-group row counts (the
+    work this run's data needs): the operations of the routed rows
+    (counts clamped to [0, M]); the bytes of those rows, of the weights
+    of the groups with a row, and of the whole output (the rows past the
+    counts are written, as zeros)."""
+    item = torch.finfo(dtype).bits // 8
+    rows = counts.clamp(0, M)
+    routed, live = int(rows.sum()), int((rows > 0).sum())
+    t_ops = 2 * routed * K * N / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = (routed * K + live * K * N + counts.numel() * M * N) * item \
+        / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def bf16_tile_rows(M):
+    """Rows of the bf16 block tile the kernel picks for capacity M (as
+    ``tc::dispatch`` in csrc/branch_matmul.cu)."""
+    return 16 if M <= 16 else 64 if M < 512 else 128
+
+
+def bits(t):
+    """The raw bits of a float tensor (so -0 differs from 0)."""
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def grouped_mm_call(x, w, counts, got):
+    """A ``torch._grouped_mm`` call on the routed rows of (x, counts),
+    packed group after group, with w as it lies or as a column-major copy
+    (whichever this torch takes), held against the kernel's routed rows
+    ``got`` at the bf16 tolerance: (call, note), call None where this
+    torch has no ``_grouped_mm`` or takes neither layout.  A yardstick
+    only: the port never calls it."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "torch._grouped_mm absent"
+    if x.dtype != torch.bfloat16:
+        return None, "torch._grouped_mm takes bf16"
+    live = torch.arange(x.shape[1], device=x.device)[None, :] \
+        < counts.clamp(0, x.shape[1])[:, None]
+    a = x[live]
+    offs = torch.cumsum(counts.clamp(0, x.shape[1]), 0, dtype=torch.int32)
+    notes = []
+    for layout in ("row-major", "column-major"):
+        b = w if layout == "row-major" \
+            else w.transpose(1, 2).contiguous().transpose(1, 2)
+        try:
+            out = fn(a, b, offs=offs)
+            torch.cuda.synchronize()
+        except Exception as exc:               # noqa: BLE001 - yardstick
+            notes.append(f"{layout} w refused: {str(exc)[:160]}")
+            del b
+            continue
+        e = (out.float() - got[live].float()).abs().max().item() \
+            if out.numel() else 0.0
+        if not e <= TOL[x.dtype]:
+            raise AssertionError(f"torch._grouped_mm off the kernel by {e}")
+        del out
+        return (lambda: fn(a, b, offs=offs)), f"{layout} w, max abs " \
+            f"{e:.3e} from the kernel's routed rows"
+    return None, "; ".join(notes)
+
+
+def bf16_ulp(t):
+    """One bf16 ulp at each |t| (bf16 keeps 8 significant bits)."""
+    _, e = torch.frexp(t.float().abs())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+def gemm_close(got, want):
+    """(max abs err, whether every element is close): within the dtype's
+    tolerance or, in bf16, one ulp of the larger magnitude, whichever is
+    more.  Two correctly rounded fp32 sums of one product in different
+    orders land on the same or adjacent bf16 values, and from |y| = 4 up
+    an ulp exceeds the 2e-2 tolerance (the random-operand cases keep
+    their outputs below 4; a model's activations do not).  A few groups
+    at a time, so the fp32 copies stay small beside a full-width model."""
+    err, close = 0.0, True
+    for g0 in range(0, got.shape[0], 8):
+        a, b = got[g0:g0 + 8].float(), want[g0:g0 + 8].float()
+        diff = (a - b).abs()
+        allowed = torch.full_like(diff, TOL[got.dtype])
+        if got.dtype == torch.bfloat16:
+            allowed = torch.maximum(allowed, bf16_ulp(
+                torch.maximum(a.abs(), b.abs())))
+        err = max(err, diff.max().item() if diff.numel() else 0.0)
+        close = close and bool((diff <= allowed).all())
+    return err, close
+
+
+def counts_hold(got, full, counts):
+    """(rows below each group's count bit-identical to ``full``, rows past
+    it exact zeros), group by group."""
+    below, zeros = True, True
+    for g, c in enumerate(counts.clamp(0, got.shape[1]).tolist()):
+        below = below and torch.equal(bits(got[g, :c]), bits(full[g, :c]))
+        zeros = zeros and not bits(got[g, c:]).any().item()
+    return below, zeros
+
+
+def gemm_case(bm, label, x, w, flush, iters=50, extra=None, counts=None):
+    """``branch_matmul`` on (x, w), with per-group row ``counts`` if given,
+    against its plain version (same counts) at the dtype's tolerance (or
+    one bf16 ulp, :func:`gemm_close`) and
+    bit for bit against a second launch and, with ``extra`` rows (G, m,
+    K), against the same rows at capacity M + m.  With counts, also: the
+    rows below each count bit-identical to the launch without counts, the
+    rows past it exact zeros; and a ``torch._grouped_mm`` call on the
+    routed rows, where this torch has one.  Timed beside its plain
+    version, one ``torch.bmm`` call on all M rows, its bound and, with
+    counts, the routed-work bound.  Returns dict(err, ms, plain_ms,
+    library_ms, grouped_ms, bound, bound_by, routed, routed_by)."""
     G, M, K = x.shape
     N = w.shape[2]
     dtype = x.dtype
-    got = bm.branch_matmul(x, w)
-    same = torch.equal(got, bm.branch_matmul(x, w))
-    e = (got.float() - bm.branch_matmul_plain(x, w).float()).abs().max() \
-        .item()
-    as_bmm = torch.equal(got, torch.bmm(x, w))
-    caps, same_cap = "", True
+    got = bm.branch_matmul(x, w, counts)
+    same = torch.equal(got, bm.branch_matmul(x, w, counts))
+    e, close = gemm_close(got, bm.branch_matmul_plain(x, w, counts))
+    ok = close and same
+    notes = ""
+    grouped = None
+    if counts is None:
+        as_bmm = torch.equal(got, torch.bmm(x, w))
+        notes += (f", {'bit-identical to' if as_bmm else 'differs from'} "
+                  f"torch.bmm")
+    else:
+        full = bm.branch_matmul(x, w)
+        below, zeros = counts_hold(got, full, counts)
+        ok = ok and below and zeros
+        rows = counts.clamp(0, M)
+        tiles = bf16_tile_rows(M) if dtype == torch.bfloat16 else None
+        computed = int((-(-rows // tiles) * tiles).sum()) if tiles else None
+        notes += (f", counts {int(rows.min())}-{int(rows.max())} "
+                  f"({int(rows.sum())} routed rows of {G * M}, "
+                  f"{int((rows > 0).sum())} of {G} groups with a row"
+                  f"{f', {computed} rows computed in tiles of {tiles}' if tiles else ''}"
+                  f"): rows below the counts "
+                  f"{'bit-identical to' if below else 'DIFFER from'} the "
+                  f"launch without counts, rows past them "
+                  f"{'exact zeros' if zeros else 'NOT ZERO'}")
+        del full
+        grouped, note = grouped_mm_call(x, w, counts, got)
+        notes += f"; {note}"
     if extra is not None:
-        wider = bm.branch_matmul(torch.cat([x, extra], 1), w)[:, :M]
+        wider = bm.branch_matmul(torch.cat([x, extra], 1), w, counts)[:, :M]
         same_cap = torch.equal(got, wider)
-        caps = (f", rows at capacity {M + extra.shape[1]} "
-                f"{'bit-identical' if same_cap else 'DIFFER'}")
+        ok = ok and same_cap
+        notes += (f", rows at capacity {M + extra.shape[1]} "
+                  f"{'bit-identical' if same_cap else 'DIFFER'}")
         del wider
     del got
-    ms = median_ms(lambda: bm.branch_matmul(x, w), flush, iters)
-    plain_ms = median_ms(lambda: bm.branch_matmul_plain(x, w), flush, iters)
+    ms = median_ms(lambda: bm.branch_matmul(x, w, counts), flush, iters)
+    plain_ms = median_ms(lambda: bm.branch_matmul_plain(x, w, counts), flush,
+                         iters)
     lib_ms = median_ms(lambda: torch.bmm(x, w), flush, iters)
+    grouped_ms = None if grouped is None \
+        else median_ms(grouped, flush, iters)
     bound, bound_by = gemm_bound(G, M, K, N, dtype)
+    routed, routed_by = (bound, bound_by) if counts is None \
+        else gemm_routed_bound(M, K, N, dtype, counts)
     log(f"branch_matmul {label} {str(dtype)[6:]} G={G} M={M} K={K} N={N}: "
-        f"max abs err {e:.3e} (tol {TOL[dtype]}), reruns "
-        f"{'bit-identical' if same else 'DIFFER'}{caps}, "
-        f"{'bit-identical to' if as_bmm else 'differs from'} torch.bmm; "
+        f"max abs err {e:.3e} ({'within' if close else 'NOT within'} "
+        f"{TOL[dtype]}{' or one bf16 ulp' if dtype == torch.bfloat16 else ''}"
+        f"), reruns "
+        f"{'bit-identical' if same else 'DIFFER'}{notes}; "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm "
-        f"{lib_ms:.4f} ms, bound {bound:.5f} ms ({bound_by}), "
-        f"{2 * G * M * K * N / ms / 1e9:.1f} TFLOP/s of padded rows")
-    if not (e <= TOL[dtype] and same and same_cap):
+        f"{lib_ms:.4f} ms"
+        f"{'' if grouped_ms is None else f', torch._grouped_mm {grouped_ms:.4f} ms'}"
+        f", bound {bound:.5f} ms ({bound_by})"
+        f"{'' if counts is None else f', routed-work bound {routed:.5f} ms ({routed_by})'}"
+        f", {2 * G * M * K * N / ms / 1e9:.1f} TFLOP/s of padded rows")
+    if not ok:
         raise AssertionError(f"branch_matmul {label}: off its plain version,"
-                             f" a rerun or another capacity")
+                             f" a rerun, another capacity or its counts")
     return dict(err=e, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound=bound, bound_by=bound_by)
+                grouped_ms=grouped_ms, bound=bound, bound_by=bound_by,
+                routed=routed, routed_by=routed_by)
 
 
 def add_timing(total, case, n=1):
-    """Add ``n`` times a gemm_case's times and bound to ``total``."""
-    for key in ("ms", "plain_ms", "library_ms", "bound"):
+    """Add ``n`` times a gemm_case's times and bounds to ``total``
+    (``grouped_ms`` only while every case has one)."""
+    for key in ("ms", "plain_ms", "library_ms", "bound", "routed"):
         total[key] = total.get(key, 0.0) + n * case[key]
+    g = case["grouped_ms"]
+    total["grouped_ms"] = None if g is None or total.get(
+        "grouped_ms", 0.0) is None else total.get("grouped_ms", 0.0) + n * g
     total.setdefault("by", set()).add(case["bound_by"])
+    total.setdefault("routed_by", set()).add(case["routed_by"])
 
 
 def branch_phase(bm, device):
@@ -1310,6 +1490,7 @@ def branch_phase(bm, device):
         x0 = rng.standard_normal((G, M, K), dtype=np.float32)
         w0 = rng.standard_normal((G, K, N), dtype=np.float32) \
             / np.float32(2 * np.sqrt(K))
+        counts = torch.tensor(BM_COUNTS, dtype=torch.int32, device=device)
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.tensor(x0, device=device).to(dtype)
             w = torch.tensor(w0, device=device).to(dtype)
@@ -1317,6 +1498,9 @@ def branch_phase(bm, device):
             worst = max(worst, case["err"])
             if dtype == torch.float32:
                 add_timing(total, case)
+            case = gemm_case(bm, f"{site} with counts {BM_COUNTS}", x, w,
+                             flush, 10, counts=counts)
+            worst = max(worst, case["err"])
     from repro_torch.kernels.branch_matmul import parallel_branches
     xs = [torch.tensor(rng.standard_normal((m, 80), dtype=np.float32),
                        device=device) for m in (512, 384, 450, 129)]
@@ -1331,6 +1515,7 @@ def branch_phase(bm, device):
     log(f"branch_matmul ragged parallel_branches M=(512, 384, 450, 129) "
         f"K=80 N=2560 fp32: max abs err {worst:.3e}")
     total["bound"] = (total["bound"], "/".join(sorted(total.pop("by"))))
+    total.pop("routed_by")
     log(f"branch_matmul per fused run (qkv + out sites, fp32): kernel "
         f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
         f"torch.bmm {total['library_ms']:.4f} ms, bound "
@@ -1936,16 +2121,47 @@ def mamba_phases(ss, calls_wrap, device):
 # phases 14-19: MoE on branch_matmul (dbrx-132b, kimi-k2)
 # --------------------------------------------------------------------------
 
+def routing_counts(gen, E, k, T, device):
+    """Per-expert row counts of a top-k routing of T tokens over E experts
+    on random router logits, clamped to the dropless capacity, as
+    ``moe_ragged`` hands them to the kernel."""
+    from repro_torch.models.moe import Buckets
+
+    logits = torch.randn((T, E), generator=gen, device=device)
+    b = Buckets(torch.topk(logits, k, -1).indices, E)
+    return b.counts.clamp(max=b.cap).int()
+
+
+def layer_summary(label, layer):
+    """Log a dbrx or kimi MoE layer's three launches, summed; returns the
+    kernels-line timing (library: ``torch._grouped_mm`` where it exists,
+    else ``torch.bmm``; bound: the routed work)."""
+    grouped = "n/a" if layer["grouped_ms"] is None \
+        else f"{layer['grouped_ms']:.4f} ms"
+    log(f"branch_matmul per {label}: kernel {layer['ms']:.4f} ms, plain "
+        f"{layer['plain_ms']:.4f} ms, torch.bmm {layer['library_ms']:.4f} "
+        f"ms, torch._grouped_mm {grouped}, bound {layer['bound']:.5f} ms "
+        f"({'/'.join(sorted(layer['by']))}), "
+        f"routed-work bound {layer['routed']:.5f} ms "
+        f"({'/'.join(sorted(layer['routed_by']))})")
+    return dict(ms=layer["ms"], plain_ms=layer["plain_ms"],
+                library_ms=layer["library_ms"] if layer["grouped_ms"] is None
+                else layer["grouped_ms"],
+                bound=(layer["routed"], "/".join(sorted(layer["routed_by"]))))
+
+
 def moe_kernel_phase(bm, device):
     """Phase 14: ``branch_matmul`` in bf16 at the MoE decode path's
-    shapes, one projection each; returns (max abs err, timing of one dbrx
-    MoE layer's three launches at decode, B=8).  The prefill shapes are
-    checked at the capacities the prefill runs, in phases 16 and 18."""
+    shapes, one projection each, twice: with every row counted (all M)
+    and with the counts of a top-k routing of B tokens (the path's);
+    returns (max abs err, timing of one dbrx MoE layer's three launches at
+    decode with the routing's counts).  The prefill shapes are checked at
+    the capacities and counts the prefill runs, in phases 16 and 18."""
     gen = torch.Generator(device=device).manual_seed(2)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     worst = 0.0
-    layer = {}
-    for label, G, M, K, N in MOE_CASES:
+    layers = {"all rows": {}, "routed": {}}
+    for label, G, M, K, N, k in MOE_CASES:
         # outputs of std 0.5, as in branch_phase
         x = torch.randn((G, M, K), generator=gen, device=device,
                         dtype=torch.bfloat16)
@@ -1953,20 +2169,23 @@ def moe_kernel_phase(bm, device):
                         dtype=torch.bfloat16).mul_(1 / (2 * np.sqrt(K)))
         extra = torch.randn((G, MOE_EXTRA_ROWS, K), generator=gen,
                             device=device, dtype=torch.bfloat16)
-        case = gemm_case(bm, f"MoE {label}", x, w, flush, MOE_KERNEL_ITERS,
-                         extra)
-        worst = max(worst, case["err"])
-        if label.startswith("dbrx"):
-            add_timing(layer, case, 2 if "gate" in label else 1)  # up too
+        for kind, counts in (
+                ("all rows", torch.full((G,), M, dtype=torch.int32,
+                                        device=device)),
+                ("routed", routing_counts(gen, G, k, M, device))):
+            case = gemm_case(bm, f"MoE {label}, {kind}", x, w, flush,
+                             MOE_KERNEL_ITERS, extra, counts)
+            worst = max(worst, case["err"])
+            if label.startswith("dbrx"):
+                add_timing(layers[kind], case,
+                           2 if "gate" in label else 1)      # up too
         del x, w, extra
         torch.cuda.empty_cache()
-    layer.pop("by")
-    layer["bound"] = (layer["bound"], "bytes")
-    log(f"branch_matmul per dbrx MoE layer at decode (B=8: gate, up, down "
-        f"at capacity 8): kernel {layer['ms']:.4f} ms, plain "
-        f"{layer['plain_ms']:.4f} ms, torch.bmm {layer['library_ms']:.4f} "
-        f"ms, bound {layer['bound'][0]:.5f} ms (bytes)")
-    return worst, layer
+    layer_summary("dbrx MoE layer at decode, every row counted (B=8: "
+                  "gate, up, down at capacity 8)", layers["all rows"])
+    timing = layer_summary("dbrx MoE layer at decode, a routing's counts "
+                           "(B=8, top-4 of 16)", layers["routed"])
+    return worst, timing
 
 
 class RoutingRecorder:
@@ -2085,6 +2304,13 @@ def moe_layer_check(bm, cfg, moe, x, recorded, label, device):
         raise AssertionError("moe_ragged's kernel path off its plain path")
     del y_k, y_p
     dt, E = x.dtype, cfg.moe.num_experts
+    counts = b.counts.clamp(max=b.cap).int()
+    rows = int(counts.sum())
+    tile = bf16_tile_rows(b.cap)
+    log(f"moe prefill: {cfg.name} {label}: {E * b.cap} bucket rows, "
+        f"{int((-(-counts // tile) * tile).sum())} computed in row tiles of "
+        f"{tile}, {rows} routed ({E * b.cap / rows:.2f}x routed in the "
+        f"buckets); {int((counts > 0).sum())} of {E} experts with a row")
     layer, worst = {}, e
     with torch.no_grad():
         xb = b.gather(x)
@@ -2093,22 +2319,22 @@ def moe_layer_check(bm, cfg, moe, x, recorded, label, device):
             extra = torch.randn((E, MOE_EXTRA_ROWS, xb.shape[2]),
                                 generator=gen, device=device, dtype=dt)
             case = gemm_case(bm, f"MoE {cfg.name} prefill {name}", xb, w,
-                             flush, MOE_KERNEL_ITERS, extra)
+                             flush, MOE_KERNEL_ITERS, extra, counts)
             add_timing(layer, case)
             worst = max(worst, case["err"])
-        h = F.silu(bm.branch_matmul(xb, ws[0])) * bm.branch_matmul(xb, ws[1])
+        h = F.silu(bm.branch_matmul(xb, ws[0], counts)) \
+            * bm.branch_matmul(xb, ws[1], counts)
         del xb, ws
         extra = torch.randn((E, MOE_EXTRA_ROWS, h.shape[2]), generator=gen,
                             device=device, dtype=dt)
         case = gemm_case(bm, f"MoE {cfg.name} prefill down", h,
-                         moe.w_down.to(dt), flush, MOE_KERNEL_ITERS, extra)
+                         moe.w_down.to(dt), flush, MOE_KERNEL_ITERS, extra,
+                         counts)
         add_timing(layer, case)
         worst = max(worst, case["err"])
-    log(f"branch_matmul per {cfg.name} MoE layer at prefill (T="
-        f"{x.shape[0]}: gate, up, down at capacity {b.cap}): kernel "
-        f"{layer['ms']:.4f} ms, plain {layer['plain_ms']:.4f} ms, torch.bmm "
-        f"{layer['library_ms']:.4f} ms, bound {layer['bound']:.5f} ms "
-        f"({'/'.join(sorted(layer['by']))})")
+    layer_summary(f"{cfg.name} MoE layer at prefill (T={x.shape[0]}: gate, "
+                  f"up, down at capacity {b.cap} with the layer's counts)",
+                  layer)
     return worst
 
 

@@ -36,7 +36,7 @@ SIGNATURES = {
     "paged_decode_attention": (_P,) * 8 + (_I,) * 7 + (_F, _I, _I, _P),
     "paged_append": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _I, _P),
-    "branch_matmul": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "branch_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "decode_attention": (_P,) * 8 + (_I,) * 6 + (_L,) * 3
     + (_I, _F, _I, _I, _P),
     "flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

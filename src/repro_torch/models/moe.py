@@ -9,12 +9,15 @@ layout (:class:`MoE`):
   smoke configs).  Plain ``einsum``s, as in JAX (no kernel there).
 * :func:`moe_ragged` — single-shard *dropless* compute, the JAX model's
   path for E > 4.  JAX sorts the (token, choice) pairs by expert and runs
-  ``jax.lax.ragged_dot``; the port buckets the pairs by expert into
-  ``(E, cap, d)`` at a capacity where nothing drops and runs the three
-  expert GEMMs as three launches of the hand-written ``branch_matmul``
-  kernel (:mod:`repro_torch.kernels.branch_matmul`), the contraction's
-  kernel in the JAX package: the E experts are the β-balanced parallel
-  branches of §3.1.  Equal to JAX's up to summation order.
+  ``jax.lax.ragged_dot`` with the experts' row counts as ``group_sizes``;
+  the port buckets the pairs by expert into ``(E, cap, d)`` at a capacity
+  where nothing drops and runs the three expert GEMMs as three launches
+  of the hand-written ``branch_matmul`` kernel
+  (:mod:`repro_torch.kernels.branch_matmul`), the contraction's kernel in
+  the JAX package, with the same row counts: each expert computes its
+  routed rows only, and an expert with none reads none of its weights.
+  The E experts are the β-balanced parallel branches of §3.1.  Equal to
+  JAX's up to summation order.
 
 Expert parallelism (JAX ``moe_ep``, ``shard_map`` over a mesh) waits for
 the mesh tools (ROADMAP §1 item 7).
@@ -22,8 +25,10 @@ the mesh tools (ROADMAP §1 item 7).
 Determinism: the pairs are ordered by a stable sort on the expert id
 alone, the buckets are filled and emptied by gathers (no scatter-add),
 and each token's k contributions are added in a fixed order of its
-choices, so a row's output does not depend on the other rows or on the
-capacity (the kernel sums each output in one fixed FMA chain).
+choices, so a row's output does not depend on the other rows, the
+counts or the capacity (the kernel sums each output in one fixed order:
+in bf16 one fixed sequence of tensor-core steps over ascending k, in
+fp32 one FMA chain, whatever the tile).
 
 Parameters:
     router (d, E), fp32      w_gate / w_up (E, d, f)      w_down (E, f, d)
@@ -40,10 +45,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels.branch_matmul import BLOCK_M, branch_matmul
+from repro_torch.kernels.branch_matmul import branch_matmul
 
 from .common import dense_init, param
 from .mlp import MLP, mlp
+
+#: the dropless capacity is T up to this many tokens (a decode step of up
+#: to 32 rows never reads back to the host), else the largest group
+#: rounded up to a multiple of it
+CAPACITY_STEP = 32
 
 
 class MoE(nn.Module):
@@ -131,30 +141,33 @@ class Buckets:
 
 def dropless_capacity(counts, T: int) -> int:
     """Bucket rows at which no pair drops.  Top-k picks k distinct
-    experts per token, so no expert gets more than T pairs: up to one
-    kernel tile of tokens (every decode step at B <= 32) the capacity is
-    T, with no read back to the host; above that, the largest group,
-    read once per layer and rounded up to the tile, so a prefill never
-    pads to E * T rows."""
-    if T <= BLOCK_M:
+    experts per token, so no expert gets more than T pairs: up to
+    :data:`CAPACITY_STEP` tokens (every decode step at B <= 32) the
+    capacity is T, with no read back to the host; above that, the
+    largest group, read once per layer and rounded up to the step, so a
+    prefill never pads to E * T rows."""
+    if T <= CAPACITY_STEP:
         return T
-    return -(-int(counts.max()) // BLOCK_M) * BLOCK_M
+    return -(-int(counts.max()) // CAPACITY_STEP) * CAPACITY_STEP
 
 
-def expert_ffn(params: MoE, xb):
+def expert_ffn(params: MoE, xb, counts=None):
     """Grouped SwiGLU over expert buckets: xb (E, cap, d) -> (E, cap, d),
-    three ``branch_matmul`` launches (weights cast to xb's dtype)."""
+    three ``branch_matmul`` launches (weights cast to xb's dtype).  With
+    ``counts`` (int32 (E,), at most cap), each expert's first counts[e]
+    rows only; the rows past them come out zero."""
     dt = xb.dtype
-    g = branch_matmul(xb, params.w_gate.to(dt))
-    u = branch_matmul(xb, params.w_up.to(dt))
-    return branch_matmul(F.silu(g) * u, params.w_down.to(dt))
+    g = branch_matmul(xb, params.w_gate.to(dt), counts)
+    u = branch_matmul(xb, params.w_up.to(dt), counts)
+    return branch_matmul(F.silu(g) * u, params.w_down.to(dt), counts)
 
 
 def moe_ragged(params: MoE, cfg, x):
     """Dropless single-shard MoE.  x: (T, d) -> (y (T, d), aux)."""
     w, idx, aux = route(params, cfg, x)
     b = Buckets(idx, cfg.moe.num_experts)
-    y = b.combine(expert_ffn(params, b.gather(x)), w, x.dtype)
+    counts = b.counts.clamp(max=b.cap).int()
+    y = b.combine(expert_ffn(params, b.gather(x), counts), w, x.dtype)
     if params.shared is not None:
         y = y + mlp(params.shared, x)
     return y, aux

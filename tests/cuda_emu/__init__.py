@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels for the CPU with g++.
 
-The CUDA sources in ``src/repro_torch/csrc/`` are rewritten in three
+The CUDA sources in ``src/repro_torch/csrc/`` are rewritten in four
 small ways — a ``kernel<<<grid, block, smem, stream>>>(args)`` launch
-becomes a call of ``emu::launch``, shared memory becomes one static
-buffer, and inline-PTX ``cp.async`` copies, commits and waits become the
-stand-in's ``cuda_pipeline.h`` calls — and compiled against the
-stand-in headers in ``include/``, which run
+becomes a call of ``emu::launch`` (which is handed the kernel, to check
+its shared-memory opt-in), shared memory becomes one static buffer,
+inline-PTX ``cp.async`` copies, commits and waits become the stand-in's
+``cuda_pipeline.h`` calls, and inline-PTX ``ldmatrix`` and ``mma.sync``
+(m16n8k16, bf16 in, fp32 out) become the stand-in's warp exchanges — and
+compiled against the stand-in headers in ``include/``, which run
 every CUDA thread of a block as a ``std::thread`` and the blocks of a
 grid in reverse launch order.  The libraries keep
 the kernels' C interface, so a test calls them with CPU tensors exactly
@@ -32,6 +34,16 @@ _CP_ASYNC = re.compile(
 _CP_COMMIT = re.compile(r'asm volatile\("cp\.async\.commit_group;\\n" ::\);')
 _CP_WAIT = re.compile(
     r'asm volatile\("cp\.async\.wait_group %0;\\n" :: "n"\((\w+)\)\);')
+# inline PTX of ldmatrix.x4 (or .x4.trans) into r[0..3] from smem_u32(p),
+# and of mma.sync m16n8k16 bf16 -> f32 with c as both addend and result
+_LDMATRIX = re.compile(
+    r'asm volatile\(\s*"ldmatrix\.sync\.aligned\.m8n8\.x4(\.trans)?'
+    r'\.shared\.b16 [^"]*"(?:\s*"[^"]*")*\s*:\s*"=r"\((\w+)\[0\]\).*?'
+    r'"r"\(smem_u32\((\w+)\)\)\);', re.S)
+_MMA = re.compile(
+    r'asm volatile\(\s*"mma\.sync\.aligned\.m16n8k16\.row\.col\.f32\.bf16'
+    r'\.bf16\.f32 ".*?"\+f"\((\w+)\[0\]\).*?"r"\((\w+)\[0\]\).*?'
+    r'"r"\((\w+)\), "r"\((\w+)\)\);', re.S)
 
 
 def available() -> bool:
@@ -63,6 +75,10 @@ def transform(text: str) -> str:
         "float* smem = reinterpret_cast<float*>(emu::shared_mem);")
     text = re.sub(r"__shared__ (\w+) (\w+(\[[^\]]*\])?);", r"static \1 \2;",
                   text)
+    text = _LDMATRIX.sub(
+        lambda m: f"__emu_ldmatrix_x4({m.group(2)}, {m.group(3)}, "
+                  f"{'true' if m.group(1) else 'false'});", text)
+    text = _MMA.sub(r"__emu_mma_m16n8k16_bf16(\1, \2, \3, \4);", text)
     if _CP_ASYNC.search(text):
         text = _CP_ASYNC.sub(r"__pipeline_memcpy_async(\2, \3, \1, \1 - \4);",
                              text)
@@ -82,7 +98,9 @@ def transform(text: str) -> str:
             depth += {"(": 1, ")": -1}.get(text[k], 0)
             k += 1
         out.append(text[i:start])
-        out.append(f"emu::launch({m.group(1)}, [&] {{ {text[start:end]}"
+        name = text[start:end]
+        out.append(f"emu::launch({m.group(1)}, reinterpret_cast<const "
+                   f"void*>(&{name}), [&] {{ {name}"
                    f"({text[m.end():k - 1]}); }})")
         i = k
     out.append(text[i:])

@@ -130,6 +130,62 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 
+# per-group row counts: 0, inside the first tile, past it, M and past M
+# (clamped), one negative (clamped to 0)
+COUNTS = [0, 5, 17, 24, 40, -3]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_counts_zero_rows_past_them_and_keep_the_rest(dtype):
+    """Rows past each group's count (clamped to [0, M]) are exact zeros;
+    the rows below it equal the call without counts bit for bit."""
+    tt = getattr(torch, dtype)
+    x, w = (torch.tensor(a).to(tt) for a in _operands(10, 6, 24, 40, 12))
+    counts = torch.tensor(COUNTS, dtype=torch.int32)
+    full = branch_matmul(x, w)
+    got = branch_matmul(x, w, counts)
+    assert got.dtype == tt and got.shape == full.shape
+    for g, c in enumerate(COUNTS):
+        c = min(max(c, 0), 24)
+        assert torch.equal(got[g, :c], full[g, :c])
+        assert torch.equal(got[g, c:].float().view(torch.int32),
+                           torch.zeros((24 - c, 12), dtype=torch.int32))
+    assert torch.equal(got, branch_matmul_plain(x, w, counts))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_counts_match_jax_ragged_dot(jx, dtype):
+    """The routed rows, packed group after group, through
+    ``jax.lax.ragged_dot`` with the counts as ``group_sizes`` (JAX's
+    dropless MoE GEMM) against the port's rows below the counts."""
+    import jax
+
+    G, M, K, N = 5, 16, 40, 24
+    x, w = _operands(11, G, M, K, N)
+    sizes = np.array([3, 0, 16, 9, 1], dtype=np.int32)
+    jt, tt = getattr(jx.jnp, dtype), getattr(torch, dtype)
+    packed = np.concatenate([x[g, :n] for g, n in enumerate(sizes)])
+    want = np.asarray(jax.lax.ragged_dot(
+        jx.jnp.asarray(packed, jt), jx.jnp.asarray(w, jt),
+        jx.jnp.asarray(sizes), preferred_element_type=jx.jnp.float32))
+    got = branch_matmul(torch.tensor(x).to(tt), torch.tensor(w).to(tt),
+                        torch.tensor(sizes))
+    rows = torch.cat([got[g, :n] for g, n in enumerate(sizes)])
+    np.testing.assert_allclose(rows.float().numpy(), want, rtol=0,
+                               atol=TOL[dtype])
+
+
+def test_wrapper_rejects_counts_it_cannot_take():
+    x, w = (torch.tensor(a) for a in _operands(12, 3, 8, 16, 8))
+    with pytest.raises(ValueError, match="int32"):
+        branch_matmul(x, w, torch.zeros(3, dtype=torch.int64))
+    with pytest.raises(ValueError, match="int32"):
+        branch_matmul(x, w, torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="counts on"):
+        branch_matmul(x, w, torch.zeros(3, dtype=torch.int32,
+                                        device="meta"))
+
+
 def test_outputs_skip_the_nan_fill_and_restore_it():
     """Kernel outputs are allocated without deterministic mode's NaN fill
     (the kernel writes every element); the setting is restored after,
@@ -240,3 +296,37 @@ def test_unaligned_operands_take_the_same_chain(card, dtype):
     odd = branch_matmul(x_off, w)
     torch.cuda.synchronize()
     assert torch.equal(got, odd)
+
+
+# the MoE expert GEMMs' shapes, narrowed (the chip smoke test runs them at
+# full width): decode's capacity 8 and a prefill capacity, per group a
+# count of 0, one in mid-tile and all M
+MOE_COUNT_SHAPES = [(16, 8, 6144, 1344), (24, 8, 7168, 256),
+                    (16, 1152, 768, 1344), (24, 352, 896, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", MOE_COUNT_SHAPES + EDGE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_kernel_with_counts_on_the_card(card, shape, dtype):
+    """Per-group row counts: against the plain version with the same
+    counts, the rows below each count bit-identical to the launch without
+    counts, the rows past it exact zeros."""
+    G, M = shape[:2]
+    x, w = _operands(13, *shape)
+    tt = getattr(torch, dtype)
+    x, w = (torch.tensor(a, device=card).to(tt) for a in (x, w))
+    counts = torch.tensor([(0, max(M // 2 - 3, 1), M)[g % 3]
+                           for g in range(G)], dtype=torch.int32,
+                          device=card)
+    got = branch_matmul(x, w, counts)
+    full = branch_matmul(x, w)
+    want = branch_matmul_plain(x, w, counts)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+    live = torch.arange(M, device=card)[None, :, None] \
+        < counts[:, None, None]
+    assert torch.equal(torch.where(live, got, 0), torch.where(live, full, 0))
+    assert not got.float().view(torch.int32)[~live.expand_as(got)].any()

@@ -234,8 +234,9 @@ def test_moe_ragged_matches_jax(T, dtype, shared):
     import jax.numpy as jnp
 
     from repro.models.moe import moe_ragged as jax_ragged
-    from repro_torch.kernels.branch_matmul import BLOCK_M, launches
-    from repro_torch.models.moe import Buckets, moe_ragged, route
+    from repro_torch.kernels.branch_matmul import launches
+    from repro_torch.models.moe import (CAPACITY_STEP, Buckets, moe_ragged,
+                                        route)
 
     jcfg, jparams, cfg, moe = _layer(shared=shared, dtype=dtype)
     x = torch.tensor(_tokens(T, 64)).to(getattr(torch, dtype))
@@ -251,9 +252,62 @@ def test_moe_ragged_matches_jax(T, dtype, shared):
     np.testing.assert_allclose(float(aux), float(jaux), **FP32)
     b = Buckets(route(moe, cfg, x)[1], cfg.moe.num_experts)
     assert bool(b.keep.all())
-    assert b.cap == (T if T <= BLOCK_M
-                     else -(-int(b.counts.max()) // BLOCK_M) * BLOCK_M)
+    assert b.cap == (T if T <= CAPACITY_STEP
+                     else -(-int(b.counts.max()) // CAPACITY_STEP)
+                     * CAPACITY_STEP)
     assert int(b.counts.sum()) == T * cfg.moe.num_experts_per_tok
+
+
+@pytest.mark.parametrize("T", [5, 32, 80])
+def test_expert_ffn_with_counts_matches_jax_ragged(T):
+    """The port's expert GEMMs on a routing's buckets with its counts
+    against JAX's ``_expert_ffn_ragged`` (``jax.lax.ragged_dot`` with the
+    same counts as ``group_sizes``) on the same routed rows, packed
+    expert after expert; the bucket rows past the counts are zeros."""
+    import jax.numpy as jnp
+
+    from repro.models.moe import _expert_ffn_ragged
+    from repro_torch.models.moe import Buckets, expert_ffn, route
+
+    jcfg, jparams, cfg, moe = _layer(E=8, k=2)
+    x = torch.tensor(_tokens(T, 64))
+    b = Buckets(route(moe, cfg, x)[1], cfg.moe.num_experts)
+    counts = b.counts.clamp(max=b.cap).int()
+    yb = expert_ffn(moe, b.gather(x), counts)
+    rows = b.src[b.valid].numpy()          # expert by expert, slot order
+    want = _expert_ffn_ragged(jparams, jnp.asarray(x.numpy()[rows]),
+                              jnp.asarray(counts.numpy()), jnp.float32)
+    np.testing.assert_allclose(yb[b.valid].numpy(), np.asarray(want),
+                               **FP32)
+    assert not yb[~b.valid].any()
+
+
+def test_moe_ragged_passes_counts_to_its_three_launches(monkeypatch):
+    """``moe_ragged`` hands each of its three GEMMs the experts' row
+    counts clamped to the capacity; ``moe_branch_matmul`` (JAX's Pallas
+    path has no counts) hands none."""
+    from repro_torch.kernels.branch_matmul import branch_matmul_plain
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.moe_pallas import moe_branch_matmul
+
+    seen = []
+
+    def recording(x, w, counts=None):
+        seen.append(counts)
+        return branch_matmul_plain(x, w, counts)
+
+    monkeypatch.setattr(moe_mod, "branch_matmul", recording)
+    _, _, cfg, moe = _layer(E=8, k=2)
+    x = torch.tensor(_tokens(40, 64))
+    moe_mod.moe_ragged(moe, cfg, x)
+    b = moe_mod.Buckets(moe_mod.route(moe, cfg, x)[1], cfg.moe.num_experts)
+    assert len(seen) == 3
+    for counts in seen:
+        assert counts.dtype == torch.int32
+        assert torch.equal(counts, b.counts.clamp(max=b.cap).int())
+    seen.clear()
+    moe_branch_matmul(moe, cfg, x, capacity_factor=0.25)
+    assert seen == [None, None, None]
 
 
 def test_buckets_follow_jax_positions():

@@ -167,7 +167,38 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     profiles of a prefill call and a decode step, and the paged serve run
     (megastep 8) with its launch counts;
 19. CLI: ``serve("dbrx-132b")`` and ``--arch kimi-k2-1t-a32b --requests
-    4 --max-new 8`` (the reduced configs, 4 experts: ``moe_dense``).
+    4 --max-new 8`` (the reduced configs, 4 experts: ``moe_dense``);
+20. the heterogeneous runtime, ``PlanExecutor(mode="parallax-hetero")``
+    with the host CPU beside the card, every graph input passed as a
+    host numpy array, in five parts run beside the phases whose graphs
+    they reuse.  First (after 8) the two constants of
+    ``core.partition.H100`` no data sheet gives, printed on the "h100
+    profile" line: the dispatch latency L (median host time of a tiny
+    launch plus a 4-byte copy back) and the host's fallback rate R_cpu
+    (an fp32 1024^3 CPU matmul).  Hetero A: planner A's graph placed
+    under the permissive profile and under ``H100_CONFIG``: every branch
+    on the card, bit-identical to fused ``parallax``, 2 ``branch_matmul``
+    launches a run.  Hetero B: ``heterogeneous_graph``, ``cond_graph``
+    and ``while_graph`` at dim 2560 under ``H100_CONFIG``: the
+    control-flow nodes on the host as dynamic regions, within rtol =
+    atol = 2e-5 of ``reference`` on the card (normwise distance
+    printed), the region cache hit on every later run.  Hetero C (after
+    9): planner B's stablelm-3b DAG under ``MOBILE_CONFIG`` and
+    ``H100_CONFIG``: branches per device per model layer, segments,
+    transfers by direction, wall ms a run beside fused ``parallax``
+    (all on the card) and a run with a barrier after each segment split
+    by device; logits within a normwise 1e-4 of ``reference``, argmax
+    equal.  Hetero E (after 12): mamba2-370m's DAG cut to 8 of its 48
+    layers for the script's time: the scan chains on the host, 0
+    ``ssd_scan`` launches a hetero run (one a layer in fused
+    ``parallax``), logits within 2e-4 of the oracle.  Hetero D (after
+    17): the fp32 MoE DAG, each router a host dynamic region, logits
+    within 2e-4 of the oracle.  Every run has one sync, moves exactly
+    ``physical_bytes()`` of the plan's transfers, counts every dispatch
+    on a device and repeats the first run bit for bit (3 runs a case).
+    The params are graph inputs and move to their consumers' devices
+    every run without being counted as transfers, as in the JAX
+    runtime; the printed times include those copies.
 
 dbrx-132b and kimi-k2 are never resident together, nor beside another
 full-width model: each is freed before the next is built.
@@ -250,6 +281,7 @@ SSD_CASES = (                      # label, b, S, H, G, L, N, strided
 APPEND_CHUNK = 16                  # paged_append's chunked, ragged case
 MAMBA_XCHECK = 256                 # one chunk: prefill_fn needs S % 256
 MAMBA_RUNS = 3                     # timed runs per planner mode
+MAMBA_HETERO_LAYERS = 8            # hetero E's mamba2-370m depth (of 48)
 
 # the MoE phases (slice 5): published widths, depth cut to fit one card
 DBRX_LAYERS = 8                    # of 40: 54.6 GB of bf16 weights
@@ -266,6 +298,14 @@ MOE_CASES = (                      # label, G, M (capacity = B), K, N, top-k
     ("kimi decode gate/up", 384, B, 7168, 2048, 8),
     ("kimi decode down", 384, B, 2048, 7168, 8),
 )
+
+# the heterogeneous runtime (slice 6)
+HETERO_RUNS = 3                    # parallax-hetero runs a case, identical
+HETERO_LAT_ITERS = 200             # launch + copy round trips for L
+HETERO_CPU_MM = 1024               # the fp32 CPU matmul for R_cpu
+HETERO_CF_GRAPHS = ("heterogeneous", "cond", "while")
+HETERO_CF_DIM = 2560               # hetero B's width, stablelm-3b's d_model
+HETERO_NORMWISE = 1e-4             # hetero C: CPU against card fp32 sums
 
 KERNELS = {
     "paged_decode_attention": dict(
@@ -1740,7 +1780,7 @@ def dag_check(label, cfg, lm, seq, modes, runs, device, tol=None,
 
 def planner_model_dag(device):
     """Phase 9: stablelm-3b at full width, ``DAG_LAYERS`` deep, through
-    the planner."""
+    the planner; then hetero C on the same model."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
@@ -1751,9 +1791,296 @@ def planner_model_dag(device):
     modes = {k: v for k, v in MODES.items() if k != "fused, kernel off"}
     dag_check("planner B", cfg, lm, DAG_SEQ, modes, RUNS_B, device,
               arena=True)
+    hetero_dag("hetero C", cfg, lm, DAG_SEQ, device,
+               ("MOBILE_CONFIG", "H100_CONFIG"), logits_close)
     del lm
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# phase 20: the heterogeneous runtime (host CPU beside the card)
+# --------------------------------------------------------------------------
+
+def h100_profile_phase(device):
+    """The two constants of ``core.partition.H100`` that no data sheet
+    gives: the dispatch latency L (median host time of one tiny kernel
+    launch plus a 4-byte card -> host copy, which waits for it) and the
+    host's fallback rate R_cpu (one fp32 1024^3 matmul on the CPU)."""
+    from repro_torch.core import H100
+
+    x = torch.zeros(1, device=device)
+    lat = []
+    for i in range(HETERO_LAT_ITERS + 20):
+        t0 = time.perf_counter()
+        (x + 1).to("cpu")
+        if i >= 20:                                  # 20 warm-up rounds
+            lat.append(time.perf_counter() - t0)
+    n = HETERO_CPU_MM
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn(n, n, generator=gen)
+    b = torch.randn(n, n, generator=gen)
+    mm = []
+    for i in range(7):
+        t0 = time.perf_counter()
+        a @ b
+        if i >= 2:
+            mm.append(time.perf_counter() - t0)
+    L, t_mm = float(np.median(lat)), float(np.median(mm))
+    log(f"h100 profile: L = {L * 1e6:.2f} us (median of {len(lat)}: "
+        f"launch + 4-byte copy to the host; {min(lat) * 1e6:.2f}-"
+        f"{max(lat) * 1e6:.2f}), R_cpu = {n ** 3 / t_mm:.4e} MAC/s (fp32 "
+        f"{n}^3 matmul, {t_mm * 1e3:.3f} ms median of {len(mm)}, "
+        f"{torch.get_num_threads()} CPU threads); floor L*R_cpu = "
+        f"{L * n ** 3 / t_mm:.4e}; the profile in use: {H100}, floor "
+        f"{H100.derived_flops_floor():.4e}")
+
+
+def host_env(env):
+    """Graph inputs as host numpy arrays (caller-owned host memory, the
+    transfer plan's EXTERNAL source)."""
+    return {t: v.cpu().numpy() if torch.is_tensor(v) else v
+            for t, v in env.items()}
+
+
+def hetero_runs(label, plan, env, device, runs, profile=None,
+                wrappers=()):
+    """``runs`` runs of ``parallax-hetero`` over ``plan`` (placed under
+    ``profile``, or the plan's own).  Every run: one sync, transfer bytes
+    equal to the plan's ``physical_bytes()``, dispatches per device
+    summing to the run's dispatches, each of ``wrappers`` ((kernel
+    module, name, launches a run), counts set to 0 just before the runs
+    and read just after) launched as stated, and outputs bit-identical
+    to the first run.  Returns (executor, output, wall ms per run)."""
+    from repro_torch.core import PlanExecutor
+
+    ex = PlanExecutor(plan, "parallax-hetero", device=device,
+                      hetero_profile=profile)
+    tp = ex.plan.attrs["transfers"]
+    first, walls = None, []
+    for mod, _, _ in wrappers:
+        mod.reset_launches()
+    for i in range(runs):
+        t0 = time.perf_counter()
+        out = ex(env).outputs[plan.graph.outputs[0]]   # ends in its sync
+        walls.append((time.perf_counter() - t0) * 1e3)
+        for mod, name, want in wrappers:
+            if mod.launches[name] != want * (i + 1):
+                raise AssertionError(f"{label}: {mod.launches[name]} {name}"
+                                     f" launches in {i + 1} runs, expected "
+                                     f"{want} a run")
+        if (ex.last_sync_count != 1
+                or ex.last_transfer_bytes != tp.physical_bytes()
+                or sum(ex.last_device_dispatches.values())
+                != ex.last_dispatch_count):
+            raise AssertionError(
+                f"{label}: {ex.last_sync_count} syncs, "
+                f"{ex.last_transfer_bytes} B moved of "
+                f"{tp.physical_bytes()} planned, dispatches "
+                f"{ex.last_device_dispatches} of {ex.last_dispatch_count}")
+        if first is None:
+            first = out
+        elif not torch.equal(out, first):
+            raise AssertionError(f"{label}: run {i} differs from run 0")
+    return ex, first, walls
+
+
+def hetero_summary(label, ex, walls, model_layers=None):
+    """Log the placement, segments and transfers of a hetero executor."""
+    placement = ex.plan.placement
+    per_dev = collections.Counter(a.key for a in
+                                  placement.assignments.values())
+    per = ""
+    if model_layers:
+        per = " (" + ", ".join(f"{k[0]}:{k[1]} {n / model_layers:.2f}"
+                               for k, n in sorted(per_dev.items())) + \
+            " a model layer)"
+    moves = {}
+    for e in ex.plan.attrs["transfers"].edges:
+        moves[(e.tensor, e.dst)] = (e.src[0], e.dst[0], e.nbytes)
+    way = collections.Counter()
+    for src, dst, nb in moves.values():
+        way[f"{src}->{dst}"] += nb
+        way[f"{src}->{dst} n"] += 1
+    stats = ex.hetero_stats
+    log(f"{label}: branches {dict(sorted(per_dev.items()))}{per}; "
+        f"{stats.segments} segments ({stats.dynamic_regions} dynamic) on "
+        f"{list(stats.devices)}, dispatches a run "
+        f"{ex.last_device_dispatches}; {len(moves)} transfers, "
+        f"{ex.last_transfer_bytes} B a run "
+        f"({', '.join(f'{k}: {way[k]}' for k in sorted(way))}); batched "
+        f"groups {stats.batched_groups}, GEMM sites {stats.gemm_sites}; "
+        f"wall ms a run {', '.join(f'{w:.3f}' for w in walls)}")
+
+
+def device_split(ex, env, device):
+    """One run with a barrier after every segment (``profile=True``): ms
+    per logical device, summed over its segments."""
+    from repro_torch.hetero import HeteroExecutor
+
+    prof = HeteroExecutor(ex.plan, profile=True, device=device)
+    res = prof(env)
+    split = collections.Counter()
+    for seg, t in zip(prof.compiled.segments, res.layer_timings):
+        split[seg.device] += t.seconds * 1e3
+    return dict(split)
+
+
+def hetero_zoo_phase(bm, device):
+    """Hetero A and B: ``multihead_graph(2560, 32, 512)`` placed under the
+    permissive profile and under ``H100_CONFIG`` (every branch on the
+    card: bit-identical to fused parallax, 2 ``branch_matmul`` launches a
+    run); the heterogeneous, cond and while graphs at dim 2560 (their
+    control-flow nodes on the host as dynamic regions, against
+    ``reference`` on the card at 2e-5, three runs bit-identical, the
+    region cache hit on the later runs)."""
+    import torch_graph_zoo as tz
+    from repro_torch.core import (H100_CONFIG, HardwareProfile,
+                                  ParallaxConfig, PlanExecutor, compile_plan)
+    from repro_torch.core.executor import to_device
+    from repro_torch.hetero import ACCEL
+
+    perm = HardwareProfile("permissive", 0.0, 1.0, 1.0, 1.0)
+    g, make = tz.multihead_graph(**PLANNER_GRAPH)
+    budget = torch.cuda.mem_get_info(device)[0]
+    env = make(np.random.default_rng(0))
+    for name, cfg, prof in (
+            ("permissive", ParallaxConfig(budget=budget), perm),
+            ("H100_CONFIG", H100_CONFIG.with_(budget=budget), None)):
+        plan = compile_plan(g, cfg)
+        fused = PlanExecutor(plan, device=device)
+        card_env = to_device(env, device)
+        want = fused(card_env).outputs[g.outputs[0]]
+        t0 = time.perf_counter()
+        fused(card_env)
+        fused_ms = (time.perf_counter() - t0) * 1e3
+        ex, got, walls = hetero_runs(
+            f"hetero A ({name})", plan, env, device, HETERO_RUNS, prof,
+            ((bm, "branch_matmul", 2),))
+        hetero_summary(f"hetero A ({name})", ex, walls)
+        log(f"hetero A ({name}): branch_matmul launches on this path "
+            f"{bm.launches['branch_matmul']} in {HETERO_RUNS} runs")
+        if set(ex.last_device_dispatches) != {(ACCEL, 0)}:
+            raise AssertionError("hetero A: a branch left the card")
+        same = torch.equal(got, want)
+        log(f"hetero A ({name}): {'bit-identical to' if same else 'DIFFERS from'}"
+            f" fused parallax ({fused_ms:.3f} ms a run with its inputs on "
+            f"the card; the hetero runs copy the graph inputs, "
+            f"{sum(v.nbytes for v in env.values())} B with the params, "
+            f"from the host)")
+        if not same:
+            raise AssertionError("hetero A differs from fused parallax")
+    for name in HETERO_CF_GRAPHS:
+        g, make = tz.ALL_ZOO[name](dim=HETERO_CF_DIM)
+        env = make(np.random.default_rng(0))
+        plan = compile_plan(g, H100_CONFIG.with_(budget=budget))
+        ref = PlanExecutor(plan, "reference", device=device)(
+            env).outputs[g.outputs[0]]
+        ex, got, walls = hetero_runs(f"hetero B ({name})", plan, env,
+                                     device, HETERO_RUNS)
+        hetero_summary(f"hetero B ({name})", ex, walls)
+        cache = ex._hetero.dynamic_cache
+        n_dyn = ex.hetero_stats.dynamic_regions
+        close = torch.allclose(got.to(device), ref, rtol=2e-5, atol=2e-5)
+        log(f"hetero B ({name}): vs reference on the card: max abs "
+            f"{(got.to(device) - ref).abs().max().item():.3e}, normwise "
+            f"{normwise(got.to(device), ref):.3e} (rtol=atol=2e-5 "
+            f"{'holds' if close else 'FAILS'}); {HETERO_RUNS} runs "
+            f"bit-identical; region cache: {cache.compile_count} built, "
+            f"{cache.trace_count} traced, {cache.hit_count} hits, "
+            f"{cache.eager_fallbacks} eager")
+        if not close or n_dyn < 1 \
+                or cache.hit_count != n_dyn * (HETERO_RUNS - 1):
+            raise AssertionError(f"hetero B ({name}) failed")
+
+
+def hetero_dag(label, cfg, lm, seq, device, configs, check, scan=None,
+               dynamic=0):
+    """Hetero C-E: ``export_decoder_graph`` of ``lm`` at batch
+    ``DAG_BATCH`` and ``seq``, planned under each of ``configs`` (names of
+    ``repro_torch.core``'s ParallaxConfigs, given the card's free memory
+    as budget), run in ``parallax-hetero`` with its
+    inputs on the host beside ``reference`` and fused ``parallax`` on the
+    card.  ``check(label, hetero, reference)`` holds the logits;
+    ``scan``: the ``ssd_scan`` wrapper module (0 launches a hetero run,
+    one a layer in fused parallax); ``dynamic``: the host dynamic regions
+    the placement must make."""
+    from repro_torch import core
+    from repro_torch.core import (PlanExecutor, clear_compile_cache,
+                                  compile_plan)
+    from repro_torch.core.executor import to_device
+    from repro_torch.kernels import branch_matmul as bm
+    from repro_torch.models.dag_export import export_decoder_graph
+
+    g, make = export_decoder_graph(cfg, lm, DAG_BATCH, seq)
+    env = make(np.random.default_rng(0))
+    card_env, env = to_device(env, device), host_env(env)
+    params_b = sum(env[t].nbytes for t in g.params)
+    budget = torch.cuda.mem_get_info(device)[0]
+    for name in configs:
+        plan = compile_plan(g, getattr(core, name).with_(budget=budget))
+        ref = PlanExecutor(plan, "reference", device=device)(
+            card_env).outputs[g.outputs[0]]
+        fused = PlanExecutor(plan, device=device)
+        fused_ms = []
+        for _ in range(HETERO_RUNS):
+            before = scan.launches["ssd_scan"] if scan else 0
+            t0 = time.perf_counter()
+            fused(card_env)
+            fused_ms.append((time.perf_counter() - t0) * 1e3)
+            if scan and scan.launches["ssd_scan"] - before \
+                    != cfg.num_layers:
+                raise AssertionError(f"{label}: fused parallax did not "
+                                     f"launch ssd_scan once a layer")
+        wrappers = [(bm, "branch_matmul", 0)]
+        if scan:
+            wrappers.append((scan, "ssd_scan", 0))
+        ex, got, walls = hetero_runs(f"{label} ({name})", plan, env, device,
+                                     HETERO_RUNS, wrappers=wrappers)
+        hetero_summary(f"{label} ({name})", ex, walls, cfg.num_layers)
+        cache = ex._hetero.dynamic_cache
+        log(f"{label} ({name}): region cache {cache.compile_count} built, "
+            f"{cache.trace_count} traced, {cache.hit_count} hits, "
+            f"{cache.eager_fallbacks} eager")
+        if ex.hetero_stats.dynamic_regions != dynamic:
+            raise AssertionError(f"{label}: {ex.hetero_stats.dynamic_regions}"
+                                 f" dynamic regions, expected {dynamic}")
+        split = device_split(ex, env, device)
+        log(f"{label} ({name}): fused parallax on the card "
+            f"{', '.join(f'{w:.3f}' for w in fused_ms)} ms a run; "
+            f"parallax-hetero moves the params ({params_b} B, not counted "
+            f"as transfers) to their consumers' devices every run; "
+            f"a run with a barrier after each segment spends ms "
+            f"{ {k: round(v, 3) for k, v in sorted(split.items())} }")
+        check(f"{label} ({name})", got.to(device), ref)
+        del plan, ref, fused, ex, got
+    del g, make, env, card_env
+    clear_compile_cache()
+
+
+def logits_close(label, got, ref):
+    """Hetero C: normwise 1e-4 of reference and the same argmax."""
+    rel = normwise(got, ref)
+    same = torch.equal(got.argmax(-1), ref.argmax(-1))
+    log(f"{label}: logits vs reference on the card: normwise {rel:.3e} "
+        f"(tol {HETERO_NORMWISE}), max abs "
+        f"{(got - ref).abs().max().item():.3e}, argmax "
+        f"{'equal' if same else 'DIFFERS'}")
+    if not (rel <= HETERO_NORMWISE and same):
+        raise AssertionError(f"{label}: logits off reference")
+
+
+def logits_allclose(tol):
+    """Hetero D-E: the phase's own tolerance against the oracle."""
+    def check(label, got, ref):
+        ok = torch.allclose(got, ref, rtol=tol, atol=tol)
+        log(f"{label}: logits vs the oracle on the card: max abs "
+            f"{(got - ref).abs().max().item():.3e}, normwise "
+            f"{normwise(got, ref):.3e} (rtol=atol={tol} "
+            f"{'holds' if ok else 'FAILS'})")
+        if not ok:
+            raise AssertionError(f"{label}: logits off the oracle")
+    return check
 
 
 # --------------------------------------------------------------------------
@@ -2028,7 +2355,8 @@ def mamba_serve_phase(api, params, calls, ss):
 def mamba_planner_phase(ss, device):
     """Phase 12: the mamba2-370m DAG at full width and depth (fp32), batch
     1, seq 256, through the planner: reference and fused parallax against
-    the op-by-op oracle, one ssd_scan launch per layer per run."""
+    the op-by-op oracle, one ssd_scan launch per layer per run; then
+    hetero E on its first ``MAMBA_HETERO_LAYERS`` layers."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
@@ -2037,6 +2365,10 @@ def mamba_planner_phase(ss, device):
         torch.Generator(device=device).manual_seed(0))
     dag_check("mamba planner", cfg, lm, DAG_SEQ, PLANNER_MODES, MAMBA_RUNS,
               device, tol=SSD_TOL, unsupported=".ssd_scan", scan=ss)
+    hetero_dag("hetero E",
+               dataclasses.replace(cfg, num_layers=MAMBA_HETERO_LAYERS), lm,
+               DAG_SEQ, device, ("MOBILE_CONFIG",), logits_allclose(SSD_TOL),
+               scan=ss)
     del lm
     gc.collect()
     torch.cuda.empty_cache()
@@ -2459,7 +2791,8 @@ def moe_fp32_phase(bm, device):
     """Phases 16b and 17: dbrx-132b at full width, ``DBRX_FP32_LAYERS``
     deep, in fp32: prefill_fn against the plain GEMM at 2e-4 (routing
     flips counted); then its DAG through the planner, ``reference`` and
-    fused ``parallax`` within 2e-4 of the op-by-op oracle."""
+    fused ``parallax`` within 2e-4 of the op-by-op oracle; then hetero
+    D."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
@@ -2500,6 +2833,8 @@ def moe_fp32_phase(bm, device):
         f"{cfg.moe.num_experts} expert chains a layer run branch by branch "
         f"(their nodes close over their weights and gate/up carries the "
         f"SwiGLU, as in the JAX exporter, so no node is a pure 2-D matmul)")
+    hetero_dag("hetero D", cfg, lm, MOE_DAG_SEQ, device, ("MOBILE_CONFIG",),
+               logits_allclose(PREFILL_TOL_FP32), dynamic=cfg.num_layers)
     del api, lm
     gc.collect()
     torch.cuda.empty_cache()
@@ -2747,6 +3082,8 @@ def main() -> int:
     gc.collect()                   # the CLI's model, before the planner
     torch.cuda.empty_cache()
     planner_kernel_path(bm, device)
+    h100_profile_phase(device)
+    hetero_zoo_phase(bm, device)
     planner_model_dag(device)
     main_launches["ssd_scan"] = mamba_phases(ss, count_calls, device)
     gc.collect()

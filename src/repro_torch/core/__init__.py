@@ -10,8 +10,9 @@ Public API:
     out = PlanExecutor(plan, mode="parallax")(inputs)   # on cuda
 
 Pass ``device="cpu"`` to the executors to run the plain PyTorch path on
-the CPU.  The heterogeneous placement (``compile_hetero_schedule``,
-``mode="parallax-hetero"``) arrives with the heterogeneous-runtime slice.
+the CPU.  ``mode="parallax-hetero"`` places every branch on the host CPU
+or the card (``repro_torch.hetero``) and runs one fused callable per
+(layer, device) segment (``compile_hetero_schedule``).
 """
 
 from .arena import (ArenaPlan, BumpAllocator, SlabPool, plan_branch_arena,
@@ -19,8 +20,10 @@ from .arena import (ArenaPlan, BumpAllocator, SlabPool, plan_branch_arena,
 from .balance import DEFAULT_BETA, LayerGroups, balance_ratio, group_layer
 from .classify import (Branch, annotate_workloads, branch_dependencies,
                        classify_nodes, extract_branches)
-from .compile import (CompiledLayer, CompiledSchedule, CompileStats,
-                      clear_compile_cache, compile_schedule, gemm_positions)
+from .compile import (CompiledHeteroSchedule, CompiledLayer, CompiledSchedule,
+                      CompiledSegment, CompileStats, HeteroCompileStats,
+                      clear_compile_cache, compile_hetero_schedule,
+                      compile_schedule, gemm_positions)
 from .executor import (ArenaExecutor, LayerTiming, PlanExecutor, RunResult,
                        make_subgraph_fn)
 from .flops import (attention_flops, conv2d_flops, elementwise_flops,
@@ -32,11 +35,11 @@ from .layers import build_layers, validate_layers
 from .liveness import (Lifetime, branch_peak_memory, lifetimes_overlap,
                        peak_memory_bruteforce, peak_memory_linear_scan,
                        tensor_lifetimes)
-from .partition import (CostModel, HardwareProfile, MOBILE_SOC,
+from .partition import (CostModel, H100, HardwareProfile, MOBILE_SOC,
                         PartitionReport, assign_epochs, candidate_regions,
                         candidate_regions_epoch,
                         partition_graph)
-from .pipeline import MOBILE_CONFIG, ParallaxConfig, compile_plan
+from .pipeline import H100_CONFIG, MOBILE_CONFIG, ParallaxConfig, compile_plan
 from .plan import (ExecutionPlan, GraphStats, fn_fingerprint, graph_stats,
                    plan_signature)
 from .scheduler import (Schedule, ScheduledLayer, greedy_select,

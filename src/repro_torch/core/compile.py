@@ -29,6 +29,10 @@ This module makes the *schedule* the unit of dispatch instead:
   and dead afterwards are recorded in ``donate_argnums``; with donation
   on, the executor drops them from its working environment after their
   layer so the caching allocator may reuse their blocks.
+* **Heterogeneous segments** — for a plan placed by
+  ``repro_torch.hetero``, :func:`compile_hetero_schedule` splits every
+  scheduled layer into one closure per logical device (host CPU or
+  card), and control-flow branches into host-side dynamic regions.
 * **Compile cache** — compiled schedules are keyed on
   :func:`~repro_torch.core.plan.plan_signature` within a weak-keyed
   per-graph scope, so repeated runs and fresh executors over an identical
@@ -171,6 +175,49 @@ class CompiledSchedule:
 
     def dispatches_per_run(self) -> int:
         return 1 if self.whole is not None else len(self.layers)
+
+
+@dataclass
+class CompiledSegment:
+    """One fused callable per (scheduled layer, logical device).
+
+    ``dynamic=True`` segments carry no callable: they are control-flow
+    regions the heterogeneous runtime executes host-side through
+    ``repro_torch.hetero.dynamic`` (per-subgraph capture cache) instead
+    of running them inside a fused closure.
+    """
+
+    layer_index: int
+    device: "tuple[str, int]"           # logical (kind, index)
+    fn: "Callable | None"               # None for dynamic segments
+    in_ids: "tuple[int, ...]"
+    out_ids: "tuple[int, ...]"
+    width: int
+    branch_ids: "tuple[int, ...]"
+    node_ids: "tuple[int, ...]" = ()    # set for dynamic segments
+    dynamic: bool = False
+
+
+@dataclass(frozen=True)
+class HeteroCompileStats:
+    segments: int             # dispatches per run (incl. dynamic regions)
+    dynamic_regions: int
+    devices: "tuple[tuple, ...]"        # logical devices with >= 1 segment
+    batched_groups: int       # groups intact on one device AND batchable
+    gemm_sites: int
+
+
+@dataclass
+class CompiledHeteroSchedule:
+    segments: "list[CompiledSegment]"   # layer-major, device-sorted
+    stats: HeteroCompileStats
+    use_branch_kernel: bool
+
+    def dispatches_per_run(self) -> int:
+        return len(self.segments)
+
+    def segments_on(self, device: "tuple[str, int]"):
+        return [s for s in self.segments if s.device == device]
 
 
 def _apply_node(env: dict, node: Node) -> None:
@@ -324,5 +371,91 @@ def compile_schedule(plan: ExecutionPlan, *, whole_plan: bool = False,
     compiled = CompiledSchedule(layers=layers, whole=whole, stats=stats,
                                 use_branch_kernel=use_branch_kernel,
                                 donate=donate)
+    per_graph[key] = compiled
+    return compiled
+
+
+def compile_hetero_schedule(plan: ExecutionPlan, *,
+                            use_branch_kernel: bool = True
+                            ) -> CompiledHeteroSchedule:
+    """Lower a *placed* plan into one fused callable per (layer, device).
+
+    Each scheduled layer is split by the plan's
+    :class:`~repro_torch.hetero.placement.PlacementPlan`: branches sharing
+    a logical device run in one segment closure; a §3.1-balanced group
+    stays a parallel group (grouped-GEMM eligible) only when placement
+    kept it intact on a single device — round-robined groups trade kernel
+    batching for device-level parallelism.  Dynamic (control-flow)
+    branches become fn-less segments executed by ``hetero/dynamic.py``.
+
+    All branches within one scheduled layer are mutually independent (the
+    §3.1 layer property), so a layer's segments may run concurrently on
+    their devices; the runtime orders them deterministically.  Cached
+    like :func:`compile_schedule`; the plan signature already covers the
+    placement.
+    """
+    from .scheduler import ScheduledLayer
+    placement = plan.placement
+    if placement is None:
+        raise ValueError("plan has no placement — heterogenize() it first "
+                         "(repro_torch.hetero)")
+    per_graph = _COMPILE_CACHE.setdefault(plan.graph, {})
+    key = ("hetero", plan_signature(plan), use_branch_kernel)
+    cached = per_graph.get(key)
+    if cached is not None:
+        return cached
+
+    batch_map = _batch_map(plan, use_branch_kernel)
+    assign = placement.assignments
+    segments: list[CompiledSegment] = []
+    intact_batched: set = set()
+    for sl in plan.schedule.layers:
+        per_dev: dict[tuple, ScheduledLayer] = {}
+
+        def pseudo(dev: tuple) -> ScheduledLayer:
+            if dev not in per_dev:
+                per_dev[dev] = ScheduledLayer(sl.layer_index)
+            return per_dev[dev]
+
+        dynamic_bids: list[int] = []
+        for group in sl.parallel_groups:
+            static = [b for b in group if not assign[b].dynamic]
+            dynamic_bids.extend(b for b in group if assign[b].dynamic)
+            devs = {assign[b].key for b in static}
+            if static == list(group) and len(devs) == 1:
+                pseudo(devs.pop()).parallel_groups.append(list(group))
+                if tuple(group) in batch_map:
+                    intact_batched.add(tuple(group))
+            else:
+                for b in static:
+                    pseudo(assign[b].key).sequential.append(b)
+        for b in sl.sequential:
+            if assign[b].dynamic:
+                dynamic_bids.append(b)
+            else:
+                pseudo(assign[b].key).sequential.append(b)
+
+        for dev in sorted(per_dev):
+            psl = per_dev[dev]
+            fn, in_ids, out_ids = _lower_region(plan, [psl], batch_map)
+            segments.append(CompiledSegment(
+                sl.layer_index, dev, fn, in_ids, out_ids,
+                psl.width(), tuple(psl.all_branches())))
+        for b in sorted(dynamic_bids):
+            node_ids = tuple(plan.branches[b].nodes)
+            in_ids, out_ids = region_boundary_tensors(plan.graph,
+                                                      set(node_ids))
+            segments.append(CompiledSegment(
+                sl.layer_index, assign[b].key, None, tuple(in_ids),
+                tuple(out_ids), 1, (b,), node_ids, dynamic=True))
+
+    stats = HeteroCompileStats(
+        segments=len(segments),
+        dynamic_regions=sum(1 for s in segments if s.dynamic),
+        devices=tuple(sorted({s.device for s in segments})),
+        batched_groups=len(intact_batched),
+        gemm_sites=sum(len(batch_map[g]) for g in intact_batched))
+    compiled = CompiledHeteroSchedule(segments=segments, stats=stats,
+                                      use_branch_kernel=use_branch_kernel)
     per_graph[key] = compiled
     return compiled

@@ -23,10 +23,15 @@ mode                      unit of dispatch               dispatches / run
 ``parallax`` (fused)      one scheduled layer            O(layers)
 ``parallax`` whole-plan   the entire schedule            1
 ``parallax`` interpreted  one group / one branch         O(groups x layers)
+``parallax-hetero``       one (layer, device) segment    O(layers x devices)
 ========================  =============================  ==================
 
-``parallax-hetero`` (placed plans across heterogeneous devices) arrives
-with the heterogeneous-runtime slice and raises until then.
+``parallax-hetero`` executes a *placed* plan across heterogeneous devices
+(repro_torch.hetero): card segments and host fallback segments dispatch
+per device, boundary tensors move by ``.to(device)`` (host → card
+enqueued, card → host blocking), and control-flow branches run as
+host-side dynamic regions.  Unplaced plans are heterogenized on the fly
+(``hetero_profile`` / ``n_accel`` kwargs).
 
 Devices: the executor runs on ``device`` (``cuda`` unless the caller asks
 for ``cpu``; without a card asking for ``cuda`` raises).  A run moves the
@@ -118,7 +123,7 @@ class RunResult:
 
 
 class PlanExecutor:
-    """Executes an ExecutionPlan in one of the three modes.
+    """Executes an ExecutionPlan in one of the four modes.
 
     Parallax-mode knobs (see module docstring for semantics):
 
@@ -129,26 +134,46 @@ class PlanExecutor:
     * ``use_branch_kernel`` — grouped-GEMM batching of homogeneous groups.
     * ``donate`` — drop dead intermediates from the working environment
       after their layer (None = auto: on for ``cuda``, off for ``cpu``).
-    * ``device`` — where the run happens (None = ``cuda``).
+    * ``device`` — where the run happens (None = ``cuda``); in
+      ``parallax-hetero`` mode the accelerator segments run there and the
+      host segments on the CPU.
+    * ``hetero_profile`` / ``n_accel`` — the placement's cost model and
+      accelerator count when an unplaced plan is heterogenized.
 
     Counters: ``last_dispatch_count`` / ``last_sync_count`` describe the
-    most recent run; ``dispatch_count`` / ``sync_count`` accumulate.
+    most recent run; ``dispatch_count`` / ``sync_count`` accumulate.  In
+    ``parallax-hetero`` mode ``last_transfer_bytes`` and
+    ``last_device_dispatches`` add the run's boundary traffic and its
+    dispatches per logical device.
     """
 
     def __init__(self, plan: ExecutionPlan, mode: str = "parallax", *,
                  fused: bool = True, whole_plan: bool = False,
                  profile: bool = False, use_branch_kernel: bool = True,
-                 donate: "bool | None" = None, device=None):
-        if mode == "parallax-hetero":
-            raise ValueError(
-                "mode 'parallax-hetero' arrives with the heterogeneous-"
-                "runtime slice of the port; use 'parallax'")
-        if mode not in ("reference", "sequential", "parallax"):
+                 donate: "bool | None" = None, device=None,
+                 hetero_profile=None, n_accel: "int | None" = None):
+        if mode not in ("reference", "sequential", "parallax",
+                        "parallax-hetero"):
             raise ValueError(f"unknown mode {mode!r}")
         self.mode = mode
         self.profile = profile
-        self.plan = plan
         self.device = resolve_device(device)
+        self._hetero = None
+        if mode == "parallax-hetero":
+            if whole_plan or not fused or donate is not None:
+                raise ValueError(
+                    "whole_plan/fused/donate are parallax-only knobs; "
+                    "parallax-hetero always dispatches one fused callable "
+                    "per (layer, device) segment")
+            # Deferred import: repro_torch.hetero builds on core.
+            from ..hetero import HeteroExecutor, heterogenize
+            if plan.placement is None:
+                plan = heterogenize(plan, profile=hetero_profile,
+                                    n_accel=n_accel)
+            self._hetero = HeteroExecutor(
+                plan, use_branch_kernel=use_branch_kernel, profile=profile,
+                device=self.device)
+        self.plan = plan
         if donate is None:
             donate = self.device.type == "cuda"
         self._group_cache: dict = {}
@@ -161,6 +186,15 @@ class PlanExecutor:
         self.sync_count = 0
         self.last_dispatch_count = 0
         self.last_sync_count = 0
+        self.last_transfer_bytes = 0
+        self.last_device_dispatches: dict = {}
+
+    @property
+    def hetero_stats(self):
+        """``HeteroCompileStats`` of the placed schedule (segments, dynamic
+        regions, devices) — None outside ``parallax-hetero`` mode."""
+        return (self._hetero.compiled.stats
+                if self._hetero is not None else None)
 
     # -- group callables (interpreted path) ---------------------------------
 
@@ -177,13 +211,20 @@ class PlanExecutor:
     def __call__(self, env: "dict[int, object]") -> RunResult:
         self.last_dispatch_count = 0
         self.last_sync_count = 0
-        env = to_device(env, self.device)
-        if self.mode == "reference":
-            result = self._run_reference(env)
+        if self._hetero is not None:
+            # the hetero executor moves each input to its segments' devices
+            result = self._hetero(env)
+            self.last_dispatch_count = self._hetero.last_dispatch_count
+            self.last_sync_count = self._hetero.last_sync_count
+            self.last_transfer_bytes = self._hetero.last_transfer_bytes
+            self.last_device_dispatches = dict(
+                self._hetero.last_device_dispatches)
+        elif self.mode == "reference":
+            result = self._run_reference(to_device(env, self.device))
         elif self.compiled is not None:
-            result = self._run_fused(env)
+            result = self._run_fused(to_device(env, self.device))
         else:
-            result = self._run_interpreted(env)
+            result = self._run_interpreted(to_device(env, self.device))
         self.dispatch_count += self.last_dispatch_count
         self.sync_count += self.last_sync_count
         return result

@@ -19,9 +19,9 @@ same-epoch connected component *convex* — fusing it can never create a
 cycle.
 
 Hardware profiles: the paper's mobile SoC constants are retained as
-``MOBILE_SOC``, the default.  A profile for the GPU, with constants
-measured on the card, is the heterogeneous-runtime slice's work; the
-criterion is a roofline argument and transfers unchanged in form.
+``MOBILE_SOC``, the default; ``H100`` re-derives the same criterion for
+the port's target, an NVIDIA H100 beside its host CPU (the criterion is
+a roofline argument and transfers unchanged in form).
 """
 
 from __future__ import annotations
@@ -53,6 +53,16 @@ class HardwareProfile:
 # Paper §3.1 representative values: NNAPI burst dispatch 0.2 ms, Snapdragon
 # 8 Gen 1 accelerator 2.6e13 MAC/s, LPDDR5 51.2 GB/s, mobile CPU ~1e9 MAC/s.
 MOBILE_SOC = HardwareProfile("mobile-soc", 0.2e-3, 2.6e13, 1e9, 51.2e9)
+
+# NVIDIA H100 SXM beside its host CPU.  R_acc and B_bw from NVIDIA's data
+# sheet: 67 TFLOP/s of fp32 outside the tensor cores (the DAG exporter's
+# node fns compute in fp32) = 33.5e12 MAC/s, and 3.35 TB/s of HBM3.  L and
+# R_cpu as `python3 chip_smoke.py`'s "h100 profile" line measured them on
+# an NVIDIA H100 80GB HBM3 at a 700.00 W power limit and its host's 8 CPU
+# cores: L = 35.77 us, the median host time of one tiny kernel launch plus
+# a 4-byte card -> host copy; R_cpu = 2.7523e11 MAC/s, one fp32 1024^3
+# matmul on the CPU (3.901 ms).  Both vary from machine to machine.
+H100 = HardwareProfile("h100", 35.77e-6, 33.5e12, 2.7523e11, 3.35e12)
 
 
 @dataclass(frozen=True)

@@ -21,7 +21,7 @@ from .classify import annotate_workloads, classify_nodes, extract_branches
 from .graph import Graph
 from .layers import build_layers, validate_layers
 from .liveness import branch_peak_memory
-from .partition import CostModel, MOBILE_SOC, partition_graph
+from .partition import H100, CostModel, MOBILE_SOC, partition_graph
 from .plan import ExecutionPlan, graph_stats
 from .scheduler import (DEFAULT_MARGIN, DEFAULT_MAX_PARALLEL, memory_budget,
                         schedule_layers)
@@ -43,6 +43,7 @@ class ParallaxConfig:
 
 
 MOBILE_CONFIG = ParallaxConfig(cost_model=CostModel(profile=MOBILE_SOC))
+H100_CONFIG = ParallaxConfig(cost_model=CostModel(profile=H100))
 
 
 def compile_plan(graph: Graph,

@@ -11,10 +11,14 @@ Granularity mirrors what a mobile-framework graph looks like after
 conversion (the paper's "Pre" graphs): per-KV-group attention chains,
 elementwise/norm nodes, and RoPE marked unsupported -> CPU fallback.
 
-Node fns compute in fp32 on the LM's device: an fp32 LM's weights are
-closed over as they lie (per-group slices are views, so nothing is
-copied); any other dtype is converted to fp32 once.  As in the JAX
-exporter, the QKV biases of the Qwen2 family are not exported.  A Mamba2
+Node fns compute in fp32 on their input's device: an fp32 LM's weights
+are held as they lie (per-group slices are views, so nothing is copied);
+any other dtype is converted to fp32 once.  Every constant a node fn
+reads (weights, positions, masks) goes through :class:`_PerDevice`: a
+node the heterogeneous runtime places on the host reads host copies of
+its weights, made at its first run and kept, so weights sit on their
+consumer's device, as ``hetero/transfer.py`` accounts for them.  As in
+the JAX exporter, the QKV biases of the Qwen2 family are not exported.  A Mamba2
 mixer is a 4-node chain whose SSD scan node is marked unsupported (the
 paper's "unsupported kernel" fallback class) and runs the ``ssd_scan``
 kernel.  An MoE channel is a router node marked unsupported (data-
@@ -24,6 +28,8 @@ its slice.
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -40,6 +46,25 @@ from .ssm import _causal_conv, _dims, _gated_norm, _split_proj, _ssm_inputs
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.detach().float()
+
+
+class _PerDevice:
+    """A node fn's constant, held once per device: the tensor on its own
+    device, and a copy on any other device a node reads it on, made at
+    the first read and kept.  ``shape`` and ``dtype`` are the tensor's,
+    so fn fingerprints see it as they see a tensor."""
+
+    def __init__(self, t: torch.Tensor):
+        self._copies = {t.device: t}
+        self.shape, self.dtype = t.shape, t.dtype
+
+    def on(self, x: torch.Tensor) -> torch.Tensor:
+        """The constant on ``x``'s device."""
+        c = self._copies.get(x.device)
+        if c is None:
+            c = next(iter(self._copies.values())).to(x.device)
+            self._copies[x.device] = c
+        return c
 
 
 def export_decoder_graph(cfg, params, batch: int, seq: int,
@@ -111,9 +136,13 @@ def export_decoder_graph(cfg, params, batch: int, seq: int,
 def _norm_node(b, cfg, norm_params, x, name, B, S, d_flops=None):
     d = cfg.d_model
     if cfg.norm_type == "rmsnorm":
-        fn = lambda h, s=_f32(norm_params.scale): rms_norm(s, h)  # noqa: E731
+        def fn(h, s=_PerDevice(_f32(norm_params.scale))):
+            return rms_norm(s.on(h), h)
     else:
-        fn = lambda h, p=norm_params: layer_norm(p, h)            # noqa: E731
+        def fn(h, s=_PerDevice(_f32(norm_params.scale)),
+               b=_PerDevice(_f32(norm_params.bias))):
+            return layer_norm(SimpleNamespace(scale=s.on(h), bias=b.on(h)),
+                              h)
     return b.op(name, "elementwise", [x], [TensorSpec((B, S, d))],
                 flops=elementwise_flops(B * S * (d_flops or d)), fn=fn)
 
@@ -166,7 +195,7 @@ def _export_attention(b, cfg, ap, h, layer_i, B, S, positions, fc=None):
     H, K = cfg.num_heads, cfg.num_kv_heads
     G = H // K
     window = cfg.sliding_window
-    inv_freq = ap.inv_freq
+    inv_freq = _PerDevice(ap.inv_freq)
     scale = float(np.sqrt(hd))
     wq = _f32(ap.wq).view(d, H, hd)
     wk = _f32(ap.wk).view(d, K, hd)
@@ -177,14 +206,16 @@ def _export_attention(b, cfg, ap, h, layer_i, B, S, positions, fc=None):
     mask = kpos <= qpos
     if window:
         mask &= kpos > qpos - window
+    positions, mask = _PerDevice(positions), _PerDevice(mask)
     outs = []
     for g in range(K):
-        wq_g = wq[:, g * G:(g + 1) * G, :].reshape(d, G * hd)
-        wk_g, wv_g = wk[:, g, :], wv[:, g, :]
-        wo_g = wo[g * G:(g + 1) * G].reshape(G * hd, d)
+        wq_g = _PerDevice(wq[:, g * G:(g + 1) * G, :].reshape(d, G * hd))
+        wk_g, wv_g = _PerDevice(wk[:, g, :]), _PerDevice(wv[:, g, :])
+        wo_g = _PerDevice(wo[g * G:(g + 1) * G].reshape(G * hd, d))
 
         def qkv_fn(hh, wq_=wq_g, wk_=wk_g, wv_=wv_g):
-            return torch.cat([hh @ wq_, hh @ wk_, hh @ wv_], dim=-1)
+            return torch.cat([hh @ wq_.on(hh), hh @ wk_.on(hh),
+                              hh @ wv_.on(hh)], dim=-1)
 
         qkv = b.op(f"L{layer_i}.g{g}.qkv", "matmul", [h],
                    [TensorSpec((B, S, (G + 2) * hd))],
@@ -193,10 +224,11 @@ def _export_attention(b, cfg, ap, h, layer_i, B, S, positions, fc=None):
 
         def rope_fn(qkv_, G_=G):
             q, k, v = torch.split(qkv_, [G_ * hd, hd, hd], dim=-1)
-            q = apply_rope(q.reshape(B, S, G_, hd), positions,
-                           inv_freq).reshape(B, S, G_ * hd)
-            k = apply_rope(k.reshape(B, S, 1, hd), positions,
-                           inv_freq).reshape(B, S, hd)
+            pos, freq = positions.on(qkv_), inv_freq.on(qkv_)
+            q = apply_rope(q.reshape(B, S, G_, hd), pos,
+                           freq).reshape(B, S, G_ * hd)
+            k = apply_rope(k.reshape(B, S, 1, hd), pos,
+                           freq).reshape(B, S, hd)
             return torch.cat([q, k, v], dim=-1)
 
         roped = b.op(f"L{layer_i}.g{g}.rope", "elementwise", [qkv],
@@ -208,7 +240,7 @@ def _export_attention(b, cfg, ap, h, layer_i, B, S, positions, fc=None):
             q, k, v = torch.split(qkv_, [G_ * hd, hd, hd], dim=-1)
             q = q.reshape(B, S, G_, hd)
             s = torch.einsum("bsgd,btd->bgst", q, k) / scale
-            s = torch.where(mask[None, None], s, -1e30)
+            s = torch.where(mask.on(s)[None, None], s, -1e30)
             p = torch.softmax(s, dim=-1)
             return torch.einsum("bgst,btd->bsgd", p, v).reshape(
                 B, S, G_ * hd)
@@ -220,7 +252,7 @@ def _export_attention(b, cfg, ap, h, layer_i, B, S, positions, fc=None):
         out = b.op(f"L{layer_i}.g{g}.out", "matmul", [core],
                    [TensorSpec((B, S, d))],
                    flops=matmul_flops(S, dF, G * hdF, B),
-                   fn=lambda c, wo_=wo_g: c @ wo_)
+                   fn=lambda c, wo_=wo_g: c @ wo_.on(c))
         outs.append(out)
     return b.op(f"L{layer_i}.head_merge", "elementwise", outs,
                 [TensorSpec((B, S, cfg.d_model))],
@@ -233,15 +265,16 @@ def _export_mlp(b, cfg, mp, h, layer_i, B, S, fc=None):
     d, ff = cfg.d_model, cfg.d_ff
     dF, ffF = fc.d_model, fc.d_ff
     if mp.w_gate is not None:
-        wg, wu, wd = _f32(mp.w_gate), _f32(mp.w_up), _f32(mp.w_down)
+        wg, wu, wd = (_PerDevice(_f32(w))
+                      for w in (mp.w_gate, mp.w_up, mp.w_down))
         gate = b.op(f"L{layer_i}.mlp.gate", "matmul", [h],
                     [TensorSpec((B, S, ff))],
                     flops=matmul_flops(S, ffF, dF, B),
-                    fn=lambda x, w=wg: F.silu(x @ w))
+                    fn=lambda x, w=wg: F.silu(x @ w.on(x)))
         up = b.op(f"L{layer_i}.mlp.up", "matmul", [h],
                   [TensorSpec((B, S, ff))],
                   flops=matmul_flops(S, ffF, dF, B),
-                  fn=lambda x, w=wu: x @ w)
+                  fn=lambda x, w=wu: x @ w.on(x))
         mul = b.op(f"L{layer_i}.mlp.mul", "elementwise", [gate, up],
                    [TensorSpec((B, S, ff))],
                    flops=elementwise_flops(B * S * ffF),
@@ -249,16 +282,16 @@ def _export_mlp(b, cfg, mp, h, layer_i, B, S, fc=None):
         return b.op(f"L{layer_i}.mlp.down", "matmul", [mul],
                     [TensorSpec((B, S, d))],
                     flops=matmul_flops(S, dF, ffF, B),
-                    fn=lambda x, w=wd: x @ w)
-    wu, wd = _f32(mp.w_up), _f32(mp.w_down)
-    bu, bd = _f32(mp.b_up), _f32(mp.b_down)
+                    fn=lambda x, w=wd: x @ w.on(x))
+    wu, wd, bu, bd = (_PerDevice(_f32(w))
+                      for w in (mp.w_up, mp.w_down, mp.b_up, mp.b_down))
     up = b.op(f"L{layer_i}.mlp.up", "matmul", [h],
               [TensorSpec((B, S, ff))], flops=matmul_flops(S, ffF, dF, B),
-              fn=lambda x, w=wu, bb=bu: F.gelu(x @ w + bb,
+              fn=lambda x, w=wu, bb=bu: F.gelu(x @ w.on(x) + bb.on(x),
                                                approximate="tanh"))
     return b.op(f"L{layer_i}.mlp.down", "matmul", [up],
                 [TensorSpec((B, S, d))], flops=matmul_flops(S, dF, ffF, B),
-                fn=lambda x, w=wd, bb=bd: x @ w + bb)
+                fn=lambda x, w=wd, bb=bd: x @ w.on(x) + bb.on(x))
 
 
 def _export_moe(b, cfg, mp, h, layer_i, B, S, fc=None):
@@ -275,13 +308,13 @@ def _export_moe(b, cfg, mp, h, layer_i, B, S, fc=None):
     d, ff = cfg.d_model, m.d_ff_expert
     dF, ffF = fc.d_model, fc.moe.d_ff_expert
     E, k = m.num_experts, m.num_experts_per_tok
-    router_w = _f32(mp.router)
+    router_w = _PerDevice(_f32(mp.router))
 
     gates = b.op(
         f"L{layer_i}.router", "control_flow", [h],
         [TensorSpec((B, S, E))], flops=matmul_flops(S, E, dF, B),
         supported=False,
-        fn=lambda x, w=router_w: _topk_gates(x, w, k))
+        fn=lambda x, w=router_w: _topk_gates(x, w.on(x), k))
 
     # per-expert FLOPs at the *routed share* of tokens (k/E of them),
     # matching how a runtime graph sees expert workloads.  gate+up are one
@@ -294,13 +327,14 @@ def _export_moe(b, cfg, mp, h, layer_i, B, S, fc=None):
         g1 = b.op(f"L{layer_i}.e{e}.gateup", "matmul", [h],
                   [TensorSpec((B, S, ff))],
                   flops=2 * matmul_flops(S, ffF, dF, B) * share,
-                  fn=lambda x, w=w_gate[e], w2=w_up[e]: F.silu(x @ w)
-                  * (x @ w2),
+                  fn=lambda x, w=_PerDevice(w_gate[e]),
+                  w2=_PerDevice(w_up[e]): F.silu(x @ w.on(x))
+                  * (x @ w2.on(x)),
                   N=2)
         dn = b.op(f"L{layer_i}.e{e}.down", "matmul", [g1],
                   [TensorSpec((B, S, d))],
                   flops=matmul_flops(S, dF, ffF, B) * share,
-                  fn=lambda a, w=w_down[e]: a @ w)
+                  fn=lambda a, w=_PerDevice(w_down[e]): a @ w.on(a))
         outs.append(dn)
 
     def combine(gates_, *expert_outs):
@@ -330,36 +364,44 @@ def _export_mamba(b, cfg, mp, h, layer_i, B, S, fc=None):
     the paper's 'unsupported kernel' class, which the config's notes
     name as the Parallax delegate model.  Its fn runs the SSD through the
     ``ssd_scan`` kernel wrapper with JAX's chunk rule (the config's chunk
-    when it divides S, else one chunk of S).  The port has no hetero
-    runtime yet, so this fallback node runs where the executor runs (on
-    the card); its placement on the host comes with the hetero slice."""
+    when it divides S, else one chunk of S): the kernel where the node
+    runs on the card (the homogeneous executors), its plain version where
+    ``parallax-hetero`` places the scan's branch on the host, as the
+    paper's fallback does."""
     fc = fc or cfg
     d = cfg.d_model
     s = cfg.ssm
     d_inner, _, _ = _dims(cfg)
     d_innerF, nheadsF, conv_dimF = _dims(fc)
-    proj_w, out_w = _f32(mp.in_proj), _f32(mp.out_proj)
-    conv_w, conv_b = _f32(mp.conv_w), _f32(mp.conv_b)
+    proj_w = _PerDevice(_f32(mp.in_proj))
+    out_w = _PerDevice(_f32(mp.out_proj))
+    # the fp32 tail of mamba_block: A_log, D, dt_bias and norm_scale are
+    # fp32 in every Mamba module
+    tail = {k: _PerDevice(_f32(getattr(mp, k)))
+            for k in ("A_log", "D", "dt_bias", "norm_scale")}
     F_ = proj_w.shape[1]
 
     FF = 2 * d_innerF + 2 * fc.ssm.n_groups * fc.ssm.d_state + nheadsF
     zx = b.op(f"L{layer_i}.in_proj", "matmul", [h],
               [TensorSpec((B, S, F_))],
               flops=matmul_flops(S, FF, fc.d_model, B),
-              fn=lambda x, w=proj_w: x @ w)
+              fn=lambda x, w=proj_w: x @ w.on(x))
+
+    def conv_fn(zxbcdt, w=_PerDevice(_f32(mp.conv_w)),
+                b=_PerDevice(_f32(mp.conv_b))):
+        return _conv_part(cfg, zxbcdt, w.on(zxbcdt), b.on(zxbcdt))
+
     cv = b.op(f"L{layer_i}.conv", "conv", [zx],
               [TensorSpec((B, S, F_))],
-              flops=B * S * conv_dimF * fc.ssm.conv_width * 2,
-              fn=lambda zxbcdt: _conv_part(cfg, zxbcdt, conv_w, conv_b))
+              flops=B * S * conv_dimF * fc.ssm.conv_width * 2, fn=conv_fn)
 
-    def scan_fn(zx_conv):
-        # the fp32 tail of mamba_block: A_log, D, dt_bias and norm_scale
-        # are fp32 in every Mamba module
+    def scan_fn(zx_conv, c=tail):
+        p = SimpleNamespace(**{k: v.on(zx_conv) for k, v in c.items()})
         z, xBC, dt = _split_proj(cfg, zx_conv)
-        xs, Bm, Cm, dtv, A = _ssm_inputs(mp, cfg, xBC, dt)
+        xs, Bm, Cm, dtv, A = _ssm_inputs(p, cfg, xBC, dt)
         chunk = s.chunk if S % s.chunk == 0 else S
         y = ssd_scan(xs, dtv, A, Bm, Cm, chunk=chunk)
-        return _gated_norm(mp, y, xs, z, torch.float32)
+        return _gated_norm(p, y, xs, z, torch.float32)
 
     sc = b.op(f"L{layer_i}.ssd_scan", "elementwise", [cv],
               [TensorSpec((B, S, d_inner))],
@@ -369,7 +411,7 @@ def _export_mamba(b, cfg, mp, h, layer_i, B, S, fc=None):
     return b.op(f"L{layer_i}.out_proj", "matmul", [sc],
                 [TensorSpec((B, S, d))],
                 flops=matmul_flops(S, fc.d_model, d_innerF, B),
-                fn=lambda y, w=out_w: y @ w)
+                fn=lambda y, w=out_w: y @ w.on(y))
 
 
 def _conv_part(cfg, zxbcdt, conv_w, conv_b):

@@ -5,7 +5,8 @@
 * A subprocess imports every module of ``repro_torch``, and the torch
   graph zoo, with ``jax`` and ``repro`` blocked in ``sys.modules``.
 * ``build_model``, ``ContinuousEngine`` (paged or dense),
-  ``ServingEngine``, ``PlanExecutor`` and ``ArenaExecutor`` run on
+  ``ServingEngine``, ``PlanExecutor`` (every mode, ``parallax-hetero``
+  too), ``HeteroExecutor`` and ``ArenaExecutor`` run on
   ``cuda`` by default and raise without a card unless ``device="cpu"``
   is passed.
 * The kernel wrappers take their plain versions for CPU tensors only: on
@@ -117,16 +118,21 @@ def test_planner_entry_points_raise_without_a_card(no_card):
 
     g, make = tz.multihead_graph()
     plan = compile_plan(g, ParallaxConfig(budget=1 << 30))
-    for mode in ("reference", "sequential", "parallax"):
+    for mode in ("reference", "sequential", "parallax", "parallax-hetero"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             PlanExecutor(plan, mode)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             PlanExecutor(plan, mode, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ArenaExecutor(plan)
-    ex = PlanExecutor(plan, device="cpu")
-    out = ex(make(np.random.default_rng(0))).outputs[g.outputs[0]]
-    assert out.device == torch.device("cpu")
+    from repro_torch.hetero import HeteroExecutor, heterogenize
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        HeteroExecutor(heterogenize(plan))
+    for mode in ("parallax", "parallax-hetero"):
+        ex = PlanExecutor(plan, mode, device="cpu")
+        out = ex(make(np.random.default_rng(0))).outputs[g.outputs[0]]
+        assert out.device == torch.device("cpu")
     assert ArenaExecutor(plan, device="cpu").device == torch.device("cpu")
 
 

@@ -329,11 +329,23 @@ def test_runresult_timings_cover_every_layer():
 
 
 def test_unknown_and_hetero_modes_raise():
+    """An unknown mode raises, and so do the parallax-only knobs in
+    ``parallax-hetero`` mode (the twin of JAX's
+    ``test_hetero_rejects_parallax_only_knobs``)."""
+    from repro_torch.core import HardwareProfile
+
     plan = compile_plan(tz.chain_graph()[0], CFG)
-    with pytest.raises(ValueError, match="heterogeneous"):
-        PlanExecutor(plan, "parallax-hetero", device=CPU)
     with pytest.raises(ValueError, match="unknown mode"):
         PlanExecutor(plan, "threads", device=CPU)
+    for kw in (dict(whole_plan=True), dict(fused=False), dict(donate=True)):
+        with pytest.raises(ValueError, match="parallax-only"):
+            PlanExecutor(plan, "parallax-hetero", device=CPU, **kw)
+    perm = HardwareProfile("permissive", 0.0, 1.0, 1.0, 1.0)
+    ex = PlanExecutor(plan, "parallax-hetero", device=CPU,
+                      hetero_profile=perm)
+    assert ex.hetero_stats is not None
+    assert ex.hetero_stats.segments >= 1
+    assert PlanExecutor(plan, device=CPU).hetero_stats is None
 
 
 # -- on the card ------------------------------------------------------------

@@ -200,6 +200,37 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     every run without being counted as transfers, as in the JAX
     runtime; the printed times include those copies.
 
+21. Whisper kernel cases (right after 3): ``flash_attention`` at
+    whisper-tiny's encoder shape (B=8, H=K=6, D=64, S=T=1500,
+    non-causal: both tiles partial) in bf16 and fp32, and
+    ``decode_attention`` at the decoder's cross shape (T=1500 encoder
+    positions, every slot valid, 94 tiles of 16) and self shape (448
+    slots, cache_len 100), each against its plain version, launched twice
+    and bit-identical, each decode row alone (B=1) bit-identical to its
+    row in the batch of 8, timed beside its bound and one SDPA call (no
+    mask for the cross case), and ``flash_attention`` at S=1 on the
+    cross shape timed beside it (the path not taken);
+22. whisper-tiny at full width (4 + 4 layers, d_model 384, bf16, random
+    weights from ``torch.Generator`` seed 0; last, after 19): on 8 stub
+    utterances of 1500 frames, ``prefill_fn`` with 4 ``flash_attention``
+    and 8 ``decode_attention`` launches a call (every count set to 0
+    just before and read just after), logits within a normwise 2e-2 of
+    the same call with both plain versions patched in (2e-4 in an fp32
+    model with the same weights); 32 greedy tokens each through
+    ``decode_fn`` after ``encdec.prefill_encdec``, with a scalar and
+    with a vector ``cache_len``: 8 ``decode_attention`` launches a call
+    and no other kernel, streams bit-identical, the first step's logits
+    bit-identical to ``prefill_fn``'s, tok/s, ms a step and peak memory
+    printed; profiles of a prefill call and a decode step; the reduced
+    fp32 model on the card against the CPU (prefill and 4 decode steps,
+    2e-5); the encoder DAG (``export_encoder_graph``, fp32, batch 1, seq
+    1500) through every planner mode and ``ArenaExecutor``,
+    bit-identical to ``reference``, then hetero F: the DAG under
+    ``MOBILE_CONFIG`` and ``H100_CONFIG`` in ``parallax-hetero`` (its
+    RoPE'd attention chains on the host), within a normwise 1e-5 of
+    ``reference``.  Whisper's launch counts print on a line of their own
+    before the ``kernels`` line.
+
 dbrx-132b and kimi-k2 are never resident together, nor beside another
 full-width model: each is freed before the next is built.
 
@@ -306,6 +337,19 @@ HETERO_CPU_MM = 1024               # the fp32 CPU matmul for R_cpu
 HETERO_CF_GRAPHS = ("heterogeneous", "cond", "while")
 HETERO_CF_DIM = 2560               # hetero B's width, stablelm-3b's d_model
 HETERO_NORMWISE = 1e-4             # hetero C: CPU against card fp32 sums
+
+# the Whisper phases (slice 7): whisper-tiny's widths, 8 utterances
+WHISPER = dict(B=8, H=6, D=64, T_ENC=1500, T_DEC=448)
+WHISPER_SELF_LEN = 100             # decode_attention's self case
+WHISPER_NEW = 32                   # greedy tokens an utterance
+WHISPER_SOT = 50258                # <|startoftranscript|>
+WHISPER_REF_STEPS = 4
+WHISPER_NORMWISE = 1e-5            # hetero F: CPU against card fp32 sums
+# bf16 kernels at the Whisper shapes against the plain version evaluated
+# in fp32 on the same bf16 inputs: the output's own rounding reads about
+# 2e-3; keys of a partial tile that leaked in with weight exp(0) would
+# shrink the 1500-key encoder rows by ~1.5 % and read ~1.5e-2
+WHISPER_BF16_NORMWISE = 5e-3
 
 KERNELS = {
     "paged_decode_attention": dict(
@@ -1156,6 +1200,7 @@ KERNEL_FAMILIES = (                # (substring of the kernel name, family)
     ("paged_append", "paged_append"),
     ("ssd_scan", "ssd_scan"),
 )
+HOST_OPS = 10                      # host rows of a step profile
 
 
 def device_profile(label, fn, n, bound, wrappers=()):
@@ -1165,7 +1210,9 @@ def device_profile(label, fn, n, bound, wrappers=()):
     kernel family.  ``bound`` = (ms, what) bounds the call from below.
     ``wrappers``: (family, launches dict) pairs; the dict's count under
     the family's name (its wrapper calls in the profiled window) is set
-    beside the family's device kernels."""
+    beside the family's device kernels.  Then the host side: the
+    operators and CUDA runtime calls with the most self time a call
+    (under the profiler, which adds its own cost to each)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1214,10 +1261,20 @@ def device_profile(label, fn, n, bound, wrappers=()):
             f"{bound[0]:.3f} ms")
         return
     log(f"step: {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
-        f"({launches / n:.0f} kernels), idle share {1 - busy / wall:.3f}, "
+        f"({launches / n:.0f} kernels a call), idle share {1 - busy / wall:.3f}, "
         f"{bound[1]} bound {bound[0]:.3f} ms")
     for family, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
         log(f"step:   {family}: {ms:.3f} ms ({ms / busy:.1%} of busy)")
+    ops = [a for a in prof.key_averages()
+           if a.device_type == DeviceType.CPU]
+    total = sum(a.self_cpu_time_total for a in ops) / n / 1e3
+    log(f"step: {label}: host self time in operators and runtime calls "
+        f"{total:.3f} ms a call under the profiler")
+    for a in sorted(ops, key=lambda a: -a.self_cpu_time_total)[:HOST_OPS]:
+        log(f"step:   host {a.key}: {a.self_cpu_time_total / n / 1e3:.3f} "
+            f"ms self, {a.count / n:.0f} a call")
+    log(f"step: {label}: runtime calls a call: " + ", ".join(
+        f"{a.key} {a.count / n:g}" for a in ops if a.key.startswith("cu")))
 
 
 def routed_weight_bytes(params, fn):
@@ -1688,8 +1745,8 @@ def planner_kernel_path(bm, device):
 
 def dag_check(label, cfg, lm, seq, modes, runs, device, tol=None,
               unsupported=None, scan=None, arena=False):
-    """``export_decoder_graph`` of ``lm`` at batch ``DAG_BATCH`` and
-    ``seq``, planned with the card's free memory as the §3.3 budget and
+    """``export_graph`` of ``lm`` (the decoder graph, or Whisper's encoder
+    graph) at batch ``DAG_BATCH`` and ``seq``, planned with the card's free memory as the §3.3 budget and
     run in every mode of ``modes`` (``runs`` timed runs each), every run
     launching ``branch_matmul`` once per GEMM site of its schedule.  Each
     mode's logits within ``tol`` of the op-by-op oracle or, with
@@ -1703,11 +1760,12 @@ def dag_check(label, cfg, lm, seq, modes, runs, device, tol=None,
                                   compile_schedule)
     from repro_torch.core.executor import to_device
     from repro_torch.kernels import branch_matmul as bm
-    from repro_torch.models.dag_export import export_decoder_graph
+    from repro_torch.models.dag_export import export_graph
 
     t0 = time.perf_counter()
-    g, make = export_decoder_graph(cfg, lm, DAG_BATCH, seq)
+    g, make = export_graph(cfg, lm, DAG_BATCH, seq)
     export_s = time.perf_counter() - t0
+    n_layers, width = dag_layers(cfg)
     marked = ""
     if unsupported:
         nodes = [n for n in g.nodes.values() if n.name.endswith(unsupported)]
@@ -1723,11 +1781,11 @@ def dag_check(label, cfg, lm, seq, modes, runs, device, tol=None,
     stats = compile_schedule(plan, donate=True).stats
     lower_s = time.perf_counter() - t0
     widths = collections.Counter(sl.width() for sl in plan.schedule.layers)
-    log(f"{label}: {cfg.name} full width, {cfg.num_layers} layers (fp32), "
+    log(f"{label}: {cfg.name} full width, {n_layers} layers (fp32), "
         f"batch {DAG_BATCH}, seq {seq}: {g.num_nodes()} nodes{marked}, "
         f"built+exported in {export_s:.1f} s; planned in {plan_s:.2f} s "
         f"(budget {budget / 2**30:.2f} GiB) into {len(plan.branches)} "
-        f"branches ({len(plan.branches) / cfg.num_layers:.1f} a model "
+        f"branches ({len(plan.branches) / n_layers:.1f} a model "
         f"layer), {len(plan.layers)} layers, {len(plan.schedule.layers)} "
         f"scheduled layers (width: count {dict(sorted(widths.items()))}, "
         f"max {plan.schedule.max_width()}); lowered in {lower_s:.2f} s, "
@@ -1739,7 +1797,7 @@ def dag_check(label, cfg, lm, seq, modes, runs, device, tol=None,
     torch.cuda.synchronize()
     if scan and scan.launches["ssd_scan"] != cfg.num_layers:
         raise AssertionError("the oracle did not run ssd_scan per layer")
-    if oracle.shape != (DAG_BATCH, seq, cfg.vocab_size) \
+    if oracle.shape != (DAG_BATCH, seq, width) \
             or not torch.isfinite(oracle).all():
         raise AssertionError("malformed logits")
     if scan:
@@ -1778,6 +1836,15 @@ def dag_check(label, cfg, lm, seq, modes, runs, device, tol=None,
     return stats
 
 
+def dag_layers(cfg):
+    """(model layers, output width) of ``export_graph``'s DAG: the
+    encoder's layers and d_model for an encoder-decoder, else the
+    decoder's layers and the vocabulary."""
+    if cfg.is_encoder_decoder:
+        return cfg.encoder_layers, cfg.d_model
+    return cfg.num_layers, cfg.vocab_size
+
+
 def planner_model_dag(device):
     """Phase 9: stablelm-3b at full width, ``DAG_LAYERS`` deep, through
     the planner; then hetero C on the same model."""
@@ -1792,7 +1859,8 @@ def planner_model_dag(device):
     dag_check("planner B", cfg, lm, DAG_SEQ, modes, RUNS_B, device,
               arena=True)
     hetero_dag("hetero C", cfg, lm, DAG_SEQ, device,
-               ("MOBILE_CONFIG", "H100_CONFIG"), logits_close)
+               ("MOBILE_CONFIG", "H100_CONFIG"),
+               normwise_close(HETERO_NORMWISE, argmax=True))
     del lm
     gc.collect()
     torch.cuda.empty_cache()
@@ -1996,7 +2064,7 @@ def hetero_zoo_phase(bm, device):
 
 def hetero_dag(label, cfg, lm, seq, device, configs, check, scan=None,
                dynamic=0):
-    """Hetero C-E: ``export_decoder_graph`` of ``lm`` at batch
+    """Hetero C-F: ``export_graph`` of ``lm`` at batch
     ``DAG_BATCH`` and ``seq``, planned under each of ``configs`` (names of
     ``repro_torch.core``'s ParallaxConfigs, given the card's free memory
     as budget), run in ``parallax-hetero`` with its
@@ -2010,9 +2078,9 @@ def hetero_dag(label, cfg, lm, seq, device, configs, check, scan=None,
                                   compile_plan)
     from repro_torch.core.executor import to_device
     from repro_torch.kernels import branch_matmul as bm
-    from repro_torch.models.dag_export import export_decoder_graph
+    from repro_torch.models.dag_export import export_graph
 
-    g, make = export_decoder_graph(cfg, lm, DAG_BATCH, seq)
+    g, make = export_graph(cfg, lm, DAG_BATCH, seq)
     env = make(np.random.default_rng(0))
     card_env, env = to_device(env, device), host_env(env)
     params_b = sum(env[t].nbytes for t in g.params)
@@ -2037,7 +2105,7 @@ def hetero_dag(label, cfg, lm, seq, device, configs, check, scan=None,
             wrappers.append((scan, "ssd_scan", 0))
         ex, got, walls = hetero_runs(f"{label} ({name})", plan, env, device,
                                      HETERO_RUNS, wrappers=wrappers)
-        hetero_summary(f"{label} ({name})", ex, walls, cfg.num_layers)
+        hetero_summary(f"{label} ({name})", ex, walls, dag_layers(cfg)[0])
         cache = ex._hetero.dynamic_cache
         log(f"{label} ({name}): region cache {cache.compile_count} built, "
             f"{cache.trace_count} traced, {cache.hit_count} hits, "
@@ -2058,16 +2126,19 @@ def hetero_dag(label, cfg, lm, seq, device, configs, check, scan=None,
     clear_compile_cache()
 
 
-def logits_close(label, got, ref):
-    """Hetero C: normwise 1e-4 of reference and the same argmax."""
-    rel = normwise(got, ref)
-    same = torch.equal(got.argmax(-1), ref.argmax(-1))
-    log(f"{label}: logits vs reference on the card: normwise {rel:.3e} "
-        f"(tol {HETERO_NORMWISE}), max abs "
-        f"{(got - ref).abs().max().item():.3e}, argmax "
-        f"{'equal' if same else 'DIFFERS'}")
-    if not (rel <= HETERO_NORMWISE and same):
-        raise AssertionError(f"{label}: logits off reference")
+def normwise_close(tol, argmax=False):
+    """Hetero C and F: the output within a normwise ``tol`` of
+    ``reference``, with the same argmax where ``argmax``."""
+    def check(label, got, ref):
+        rel = normwise(got, ref)
+        same = not argmax or torch.equal(got.argmax(-1), ref.argmax(-1))
+        log(f"{label}: output vs reference on the card: normwise {rel:.3e} "
+            f"(tol {tol}), max abs {(got - ref).abs().max().item():.3e}"
+            + (f", argmax {'equal' if same else 'DIFFERS'}" if argmax
+               else ""))
+        if not (rel <= tol and same):
+            raise AssertionError(f"{label}: output off reference")
+    return check
 
 
 def logits_allclose(tol):
@@ -2963,6 +3034,414 @@ def moe_phases(bm, pa, da, fa, device):
     return launched, err
 
 
+# --------------------------------------------------------------------------
+# phases 21-22: whisper-tiny, the encoder-decoder (slice 7)
+# --------------------------------------------------------------------------
+
+def sdpa_cross(q, k, v):
+    """The library yardstick of the cross case: one SDPA call, no mask."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q[:, :, None], k, v)[:, :, 0]
+
+
+def whisper_kernel_phase(da, fa, device):
+    """Phase 21: ``flash_attention`` at the encoder's shape and
+    ``decode_attention`` at the decoder's two shapes, each against its
+    plain version, launched twice and bit-identical, timed beside its
+    bound and one SDPA call; ``flash_attention`` at S = 1 on the cross
+    shape timed beside ``decode_attention``.  Returns {name: max abs
+    err}."""
+    w = WHISPER
+    Bw, Hw, Dw, T = w["B"], w["H"], w["D"], w["T_ENC"]
+    gen = torch.Generator(device=device).manual_seed(7)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    err = {"decode_attention": 0.0, "flash_attention": 0.0}
+
+    def twice(name, label, fn):
+        got = fn()
+        same = torch.equal(got, fn())
+        log(f"{name} whisper {label}: two launches "
+            f"{'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"{name} differs from itself ({label})")
+        return got
+
+    def exact(name, label, got, plain, *args):
+        """A bf16 result against ``plain`` in fp32 on the same bf16
+        values: normwise within ``WHISPER_BF16_NORMWISE``."""
+        if got.dtype != torch.bfloat16:
+            return
+        rel = normwise(got, plain(*(a.float() if a.is_floating_point()
+                                    else a for a in args)))
+        log(f"{name} whisper {label} bfloat16: normwise {rel:.3e} against "
+            f"the plain version in fp32 on the same bf16 inputs (tol "
+            f"{WHISPER_BF16_NORMWISE})")
+        if not rel <= WHISPER_BF16_NORMWISE:
+            raise AssertionError(f"{name} off the fp32 evaluation of its "
+                                 f"bf16 inputs ({label})")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        q, k, v = (torch.randn(Bw, Hw, T, Dw, generator=gen, device=device)
+                   .to(dtype) for _ in range(3))
+        label = f"encoder B={Bw} H=K={Hw} S=T={T} D={Dw} non-causal"
+        got = twice("flash_attention", f"{label} {dt}",
+                    lambda: fa.flash_attention(q, k, v, causal=False))
+        want = fa.flash_attention_plain(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        err["flash_attention"] = max(err["flash_attention"], check(
+            "flash_attention", f"whisper {label}", got, want, dtype))
+        del want
+        exact("flash_attention", label, got,
+              lambda *a: fa.flash_attention_plain(*a, causal=False), q, k, v)
+        time_case(
+            "flash_attention", f"whisper {label} {dt}",
+            lambda: fa.flash_attention(q, k, v, causal=False),
+            lambda: fa.flash_attention_plain(q, k, v, causal=False),
+            lambda: sdpa_flash(q, k, v, False, 0),
+            flash_bound(q, k, False, 0), flush)
+        del q, k, v
+
+        # the decoder: cross (T_ENC slots, every one valid) and self
+        q = torch.randn(Bw, Hw, Dw, generator=gen, device=device).to(dtype)
+        for label, slots, n in (
+                (f"cross T={T} all valid", T, T - 1),
+                (f"self T={w['T_DEC']} cache_len {WHISPER_SELF_LEN}",
+                 w["T_DEC"], WHISPER_SELF_LEN)):
+            k, v = (torch.randn(Bw, slots, Hw, Dw, generator=gen,
+                                device=device).to(dtype).transpose(1, 2)
+                    for _ in range(2))
+            pos = torch.arange(slots, dtype=torch.int32, device=device)
+            lens = torch.full((Bw,), n, dtype=torch.int32, device=device)
+            got = twice("decode_attention", f"{label} {dt}",
+                        lambda: da.decode_attention(q, k, v, pos, lens))
+            want = da.decode_attention_plain(q, k, v, pos, lens)
+            torch.cuda.synchronize()
+            err["decode_attention"] = max(err["decode_attention"], check(
+                "decode_attention", f"whisper {label}", got, want, dtype))
+            exact("decode_attention", label, got,
+                  da.decode_attention_plain, q, k, v, pos, lens)
+            for b in (0, Bw - 1):       # B = 1 splits as B = 8 does
+                one = da.decode_attention(q[b:b + 1], k[b:b + 1],
+                                          v[b:b + 1], pos, lens[b:b + 1])
+                identical("decode_attention", f"whisper {label} {dt}, row "
+                          f"{b} alone (B=1) vs in the batch of {Bw}",
+                          one[0], got[b])
+            if dtype != torch.bfloat16:
+                continue
+            cross = slots == T
+            time_case(
+                "decode_attention", f"whisper {label} {dt}",
+                lambda: da.decode_attention(q, k, v, pos, lens),
+                lambda: da.decode_attention_plain(q, k, v, pos, lens),
+                (lambda: sdpa_cross(q, k, v)) if cross
+                else (lambda: sdpa_decode(q, k, v, pos, lens, 0)),
+                dense_decode_bound(q, k, pos, lens, 0), flush)
+            if cross:
+                # the road not taken: flash_attention's one query row
+                q1 = q[:, :, None]
+                got1 = fa.flash_attention(q1, k, v, causal=False)
+                err["flash_attention"] = max(err["flash_attention"], check(
+                    "flash_attention", f"whisper cross S=1 T={T}", got1,
+                    fa.flash_attention_plain(q1, k, v, causal=False),
+                    dtype))
+                exact("flash_attention", f"cross S=1 T={T}", got1,
+                      lambda *a: fa.flash_attention_plain(*a, causal=False),
+                      q1, k, v)
+                time_case(
+                    "flash_attention", f"whisper cross S=1 T={T} {dt}",
+                    lambda: fa.flash_attention(q1, k, v, causal=False),
+                    lambda: fa.flash_attention_plain(q1, k, v,
+                                                     causal=False),
+                    lambda: sdpa_flash(q1, k, v, False, 0),
+                    flash_bound(q1, k, False, 0), flush)
+    del flush
+    torch.cuda.empty_cache()
+    return err
+
+
+@contextlib.contextmanager
+def plain_attention(da, fa):
+    """Both attention kernels' plain versions patched into the model
+    path (``attend_bshd`` and ``models.attention``'s decode calls)."""
+    import importlib
+
+    fmod = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    amod = importlib.import_module("repro_torch.models.attention")
+    saved = fmod.flash_attention, amod.decode_attention
+    fmod.flash_attention = fa.flash_attention_plain
+    amod.decode_attention = (
+        lambda q, k, v, pos, lens, window=0, tile=BS:
+        da.decode_attention_plain(q, k, v, pos, lens, window))
+    try:
+        yield
+    finally:
+        fmod.flash_attention, amod.decode_attention = saved
+
+
+def kernel_counts(mods):
+    return {name: n for m in mods for name, n in m.launches.items()}
+
+
+def whisper_greedy(api, params, frames, vector, mods):
+    """Greedy decode of ``WHISPER_NEW`` tokens a row after
+    ``prefill_encdec``, through ``decode_fn`` with a scalar or a vector
+    ``cache_len`` (``active`` all true).  Launch counts set to 0 just
+    before and read just after.  Returns (streams (B, n), first logits,
+    wall s (with the encoder pass), launches, peak bytes, ms a
+    decode_fn call)."""
+    from repro_torch.models import encdec
+    from repro_torch.runtime.sampling import greedy_serving
+
+    cfg, device = api.cfg, api.device
+    Bw = frames.shape[0]
+    tok = torch.full((Bw, 1), WHISPER_SOT, dtype=torch.int32,
+                     device=device)
+    active = torch.ones(Bw, dtype=torch.bool, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    caches = api.init_caches(Bw, WHISPER["T_DEC"])
+    _, caches = encdec.prefill_encdec(params, cfg, frames, caches)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for m in mods:
+        m.reset_launches()
+    out, first = [], None
+    for i in range(WHISPER_NEW):
+        batch = {"tokens": tok, "cache_len": i}
+        if vector:
+            batch = {"tokens": tok, "active": active, "cache_len": torch.full(
+                (Bw,), i, dtype=torch.int32, device=device)}
+        logits, caches = api.decode_fn(params, caches, batch)
+        first = logits if first is None else first
+        tok = greedy_serving(logits)[:, None]
+        out.append(tok)
+    streams = torch.cat(out, 1).cpu()
+    t2 = time.perf_counter()
+    return (streams, first, t2 - t0, kernel_counts(mods),
+            torch.cuda.max_memory_allocated(),
+            (t2 - t1) / WHISPER_NEW * 1e3)
+
+
+def whisper_prefill_flops(cfg, Bn, S):
+    """Operations of a Whisper prefill_fn call: the encoder's GEMMs and
+    attention, and every decoder layer's cross K/V (the first decoder
+    token's few are left out)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim()
+    enc = (2 * Bn * S * d * (4 * d + 2 * cfg.d_ff)
+           + 4 * Bn * cfg.num_heads * S * S * hd)
+    cross = 2 * Bn * S * d * 2 * cfg.num_kv_heads * hd
+    return cfg.encoder_layers * enc + cfg.num_layers * cross
+
+
+def decode_step_bytes(params, caches, position):
+    """What one Whisper ``decode_fn`` step must read: the token table
+    (also the vocab head), the decoder blocks, the final norm, one row of
+    ``dec_pos``, the cross K/V and the self caches' slots up to
+    ``position``; and write: each layer's new K/V row and the logits.
+    The encoder's weights and the rest of ``dec_pos`` are not read."""
+    def nbytes(ps):
+        return sum(p.numel() * p.element_size() for p in ps)
+
+    item = params.embed.element_size()
+    B = caches["cross_k"].shape[1]
+    kv_row = sum(c["k"][:, 0].nbytes for c in caches["self"])
+    return (nbytes([params.embed]) + nbytes(params.decoder.parameters())
+            + nbytes(params.dec_final.parameters())
+            + params.dec_pos[0].nbytes + caches["cross_k"].nbytes
+            + caches["cross_v"].nbytes + 2 * kv_row * (position + 1)
+            + B * params.embed.shape[0] * item)
+
+
+def whisper_reference_phase(device):
+    """The reduced fp32 model on the card (kernels) against the same
+    weights on the CPU (plain versions): prefill and 4 decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, encdec, stub_audio_frontend
+
+    cfg = get_config("whisper-tiny").reduced()
+    gpu, cpu = build_model(cfg, device=device), build_model(cfg,
+                                                            device="cpu")
+    p_gpu = gpu.init(torch.Generator(device=device).manual_seed(1))
+    p_cpu = cpu.init(None)
+    p_cpu.load_state_dict(p_gpu.state_dict())
+    frames = stub_audio_frontend(torch.Generator().manual_seed(2), cfg, 4,
+                                 cfg.encoder_seq)
+    tok = torch.zeros(4, 1, dtype=torch.int32)
+    worst = []
+    lg = gpu.prefill_fn(p_gpu, {"frames": frames.to(device),
+                                "tokens": tok.to(device)})
+    lc = cpu.prefill_fn(p_cpu, {"frames": frames, "tokens": tok})
+    worst.append((lg.cpu() - lc).abs().max().item())
+    torch.testing.assert_close(lg.cpu(), lc, rtol=2e-5, atol=2e-5)
+    cg, cc = gpu.init_caches(4, 16), cpu.init_caches(4, 16)
+    _, cg = encdec.prefill_encdec(p_gpu, cfg, frames.to(device), cg)
+    _, cc = encdec.prefill_encdec(p_cpu, cfg, frames, cc)
+    for step in range(WHISPER_REF_STEPS):
+        lg, cg = gpu.decode_fn(p_gpu, cg, {"tokens": tok.to(device),
+                                           "cache_len": step})
+        lc, cc = cpu.decode_fn(p_cpu, cc, {"tokens": tok,
+                                           "cache_len": step})
+        worst.append((lg.cpu() - lc).abs().max().item())
+        torch.testing.assert_close(lg.cpu(), lc, rtol=2e-5, atol=2e-5)
+        tok = lc.argmax(-1, keepdim=True).int()
+    log(f"whisper reference: reduced fp32, card vs CPU: prefill_fn max abs "
+        f"err {worst[0]:.3e}, {WHISPER_REF_STEPS} decode steps "
+        f"{max(worst[1:]):.3e} (tol 2e-5)")
+
+
+def whisper_phases(da, fa, device, others):
+    """Phase 22: whisper-tiny at full width (4 + 4 layers, d_model 384,
+    bf16, random weights from ``torch.Generator`` seed 0) on 8 stub
+    utterances of 1500 frames: ``prefill_fn`` (4 ``flash_attention``
+    and 8 ``decode_attention`` launches a call, logits against the plain
+    versions), greedy decode through ``decode_fn`` (8
+    ``decode_attention`` launches a call, nothing else; scalar and
+    vector streams bit-identical), the reduced model against the CPU,
+    and the encoder DAG through the planner and ``parallax-hetero``.
+    ``others``: the other kernel modules, which must not launch.
+    Returns the launch counts of one prefill_fn and one decode_fn call."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, encdec, stub_audio_frontend
+
+    mods = (fa, da) + tuple(others)
+    cfg = get_config("whisper-tiny")
+    w = WHISPER
+    t0 = time.perf_counter()
+    api = build_model(cfg, device=device)
+    params = api.init(torch.Generator(device=device).manual_seed(0))
+    frames = stub_audio_frontend(torch.Generator(device=device)
+                                 .manual_seed(1), cfg, w["B"], w["T_ENC"])
+    torch.cuda.synchronize()
+    log(f"model: {cfg.name} full width, {cfg.encoder_layers} + "
+        f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{sum(p.numel() for p in params.parameters()) / 1e6:.2f} M params "
+        f"in {api.dtype}, init {time.perf_counter() - t0:.1f} s")
+    batch = {"frames": frames, "tokens": torch.full(
+        (w["B"], 1), WHISPER_SOT, dtype=torch.int32, device=device)}
+    with torch.no_grad():
+        api.prefill_fn(params, batch)                      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for m in mods:
+            m.reset_launches()
+        logits = api.prefill_fn(params, batch)
+        torch.cuda.synchronize()
+        prefill_counts = kernel_counts(mods)
+        peak = torch.cuda.max_memory_allocated()
+        walls = []
+        for _ in range(PREFILL_RUNS):
+            t1 = time.perf_counter()
+            api.prefill_fn(params, batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        with plain_attention(da, fa):
+            plain = api.prefill_fn(params, batch)
+    want = dict.fromkeys(prefill_counts, 0)
+    want.update(flash_attention=cfg.encoder_layers,
+                decode_attention=2 * cfg.num_layers)
+    rel = normwise(logits, plain)
+    log(f"whisper prefill: prefill_fn B={w['B']} S_enc={w['T_ENC']}: "
+        f"launches {prefill_counts}, {float(np.median(walls)):.3f} ms a "
+        f"call (median of {PREFILL_RUNS}, {min(walls):.3f}-"
+        f"{max(walls):.3f}), peak device memory {peak / 2**30:.3f} GiB; "
+        f"vs both plain versions: normwise {rel:.3e} (tol {PREFILL_TOL}), "
+        f"max abs {(logits.float() - plain.float()).abs().max().item():.3e}")
+    if logits.shape != (w["B"], cfg.vocab_size) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError("whisper prefill_fn: malformed logits")
+    if prefill_counts != want:
+        raise AssertionError(f"whisper prefill_fn launches {prefill_counts}"
+                             f", expected {want}")
+    if not rel <= PREFILL_TOL:
+        raise AssertionError("whisper prefill_fn off its plain versions")
+    api32 = build_model(cfg, device=device, dtype="float32")
+    p32 = api32.init(None)
+    p32.load_state_dict(params.state_dict())
+    with torch.no_grad():
+        ref32 = api32.prefill_fn(p32, batch)
+        with plain_attention(da, fa):
+            plain32 = api32.prefill_fn(p32, batch)
+    rel32 = normwise(ref32, plain32)
+    log(f"whisper prefill: fp32 model, same weights: kernels vs plain "
+        f"versions normwise {rel32:.3e} (tol {PREFILL_TOL_FP32}); bf16 vs "
+        f"fp32 evaluation {normwise(logits, ref32):.3e}")
+    if not rel32 <= PREFILL_TOL_FP32:
+        raise AssertionError("fp32 whisper prefill_fn off its plain "
+                             "versions")
+    del api32, p32, ref32, plain32, plain
+    torch.cuda.empty_cache()
+
+    runs = {}
+    with torch.no_grad():
+        for vector in (False, True):
+            runs[vector] = whisper_greedy(api, params, frames, vector, mods)
+    streams, first, wall, counts, peak, step_ms = runs[False]
+    n_tok = streams.numel()
+    want = dict.fromkeys(counts, 0)
+    want["decode_attention"] = 2 * cfg.num_layers * WHISPER_NEW
+    same = torch.equal(streams, runs[True][0])
+    log(f"whisper decode: {w['B']} utterances x {WHISPER_NEW} greedy tokens "
+        f"through decode_fn (scalar cache_len): {n_tok} tokens in "
+        f"{wall:.3f} s with the encoder pass ({n_tok / wall:.1f} tok/s), "
+        f"{step_ms:.3f} ms a decode_fn call with its sampling, peak "
+        f"device memory {peak / 2**30:.3f} GiB, launches {counts} "
+        f"({counts['decode_attention'] / WHISPER_NEW:.0f} decode_attention "
+        f"a call); vector cache_len: {runs[True][2]:.3f} s "
+        f"({runs[True][5]:.3f} ms a call), streams "
+        f"{'bit-identical' if same else 'DIFFER'}; first step's logits "
+        f"{'bit-identical to' if torch.equal(first, logits) else 'DIFFER from'}"
+        f" prefill_fn's")
+    if counts != want or runs[True][3] != want:
+        raise AssertionError(f"whisper decode launches {counts} / "
+                             f"{runs[True][3]}, expected {want}")
+    if not same or not torch.equal(first, logits):
+        raise AssertionError("whisper decode streams differ")
+
+    # where the time goes: one prefill_fn call, one decode_fn step
+    wrappers = (("flash_attention", fa.launches),
+                ("decode_attention", da.launches))
+    device_profile(
+        f"{cfg.name} prefill_fn (B={w['B']}, {w['T_ENC']} frames)",
+        lambda: api.prefill_fn(params, batch), 3,
+        (whisper_prefill_flops(cfg, w["B"], w["T_ENC"])
+         / PEAK_FLOPS[torch.bfloat16] * 1e3, "operations"), wrappers)
+    caches = api.init_caches(w["B"], w["T_DEC"])
+    with torch.no_grad():
+        _, caches = encdec.prefill_encdec(params, cfg, frames, caches)
+    step = {"tokens": batch["tokens"], "cache_len": WHISPER_SELF_LEN}
+    device_profile(
+        f"{cfg.name} decode_fn (B={w['B']}, position {WHISPER_SELF_LEN})",
+        lambda: api.decode_fn(params, caches, step), 5,
+        (decode_step_bytes(params, caches, WHISPER_SELF_LEN)
+         / HBM_BYTES_PER_S * 1e3, "bytes"),
+        wrappers)
+    del api, params, frames, batch, logits, runs, first, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    whisper_reference_phase(device)
+
+    # the encoder DAG at full width (fp32): planner and parallax-hetero
+    lm = build_model(cfg, device=device, dtype="float32").init(
+        torch.Generator(device=device).manual_seed(0))
+    modes = {k: v for k, v in MODES.items() if k != "fused, kernel off"}
+    dag_check("whisper DAG", cfg, lm, w["T_ENC"], modes, RUNS_B, device,
+              arena=True)
+    hetero_dag("hetero F", cfg, lm, w["T_ENC"], device,
+               ("MOBILE_CONFIG", "H100_CONFIG"),
+               normwise_close(WHISPER_NORMWISE))
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {f"prefill_fn {k}": v for k, v in prefill_counts.items() if v} \
+        | {f"decode_fn {k}": v // WHISPER_NEW for k, v in counts.items()
+           if v}
+
+
 def count_calls(api):
     """Wrap ``api.decode_fn`` with a call counter; returns the counter."""
     calls = [0]
@@ -3007,6 +3486,8 @@ def main() -> int:
     e2, t2 = attention_phase(pa, da, fa, device)
     err.update(e2)
     timing.update(t2)
+    for name, e in whisper_kernel_phase(da, fa, device).items():
+        err[name] = max(err[name], e)
     err["ssd_scan"], timing["ssd_scan"] = ssd_phase(ss, device)
 
     # phase 4: the main path at full width
@@ -3092,6 +3573,9 @@ def main() -> int:
     main_launches["branch_matmul"], e_prefill = moe_phases(bm, pa, da, fa,
                                                            device)
     err["branch_matmul"] = max(err["branch_matmul"], e_moe, e_prefill)
+    gc.collect()
+    torch.cuda.empty_cache()
+    whisper_launches = whisper_phases(da, fa, device, (pa, bm, ss))
 
     rows = []
     for name, meta in KERNELS.items():
@@ -3103,6 +3587,7 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                      "bound_by": t["bound"][1],
                      "library_ms": t.get("library_ms")})
+    print("whisper launches per call: " + json.dumps(whisper_launches))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,11 @@ T = kv len, H = q heads, K = kv heads, D = head_dim):
 Where the JAX model spells attention out in jnp, the port calls the
 hand-written kernels, which take these layouts by strides:
 
-* full-sequence self-attention (prefill) — ``flash_attention``
+* full-sequence self-attention (prefill, the Whisper encoder) and
+  cross-attention over S > 1 queries — ``flash_attention``
   (:mod:`repro_torch.kernels.flash_attention`);
-* the decode step on a dense per-row cache ``(B, slots, K, D)`` —
+* the decode step on a dense per-row cache ``(B, slots, K, D)``, and
+  Whisper's one-token cross-attention over the encoder's K/V —
   ``decode_attention`` (:mod:`repro_torch.kernels.decode_attention`);
 * the decode step on the paged pool — ``paged_append`` and
   ``paged_decode_attention`` (:mod:`repro_torch.kernels.paged_attention`).
@@ -138,6 +140,35 @@ def self_attention(params: Attention, cfg, x, positions=None,
     w = cfg.sliding_window if window is None else window
     # as in the JAX model, the window applies to the causal mask only
     ctx = attend_bshd(q, k, v, causal=causal, window=w if causal else 0)
+    return ctx.reshape(B, S, -1) @ params.wo
+
+
+def cross_attention(params: Attention, cfg, x, k, v, pos=None, lens=None):
+    """Decoder cross-attention: x (B, S, d) against K/V (B, T, K, D)
+    precomputed from the encoder; a q projection with its optional bias
+    and no RoPE, every key valid (JAX's ``attend`` with no mask).
+
+    The one-token decode step (S = 1) attends through ``decode_attention``
+    with every slot valid: ``pos`` = arange(T) int32 and ``lens`` = T - 1
+    for every row (both kept in the caches by ``encdec.prefill_encdec``;
+    built here when not given).  S > 1 goes through ``flash_attention``
+    with ``causal=False``."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim()
+    q = x @ params.wq
+    if params.bq is not None:
+        q = q + params.bq
+    q = q.reshape(B, S, cfg.num_heads, hd)
+    if S > 1:
+        ctx = attend_bshd(q, k, v, causal=False)
+    else:
+        T = k.shape[1]
+        if pos is None:
+            pos = _slot_positions(T, x.device)
+        if lens is None:
+            lens = T - 1
+        ctx = decode_attention(q[:, 0].contiguous(), k.transpose(1, 2),
+                               v.transpose(1, 2), pos, lens)
     return ctx.reshape(B, S, -1) @ params.wo
 
 

@@ -19,7 +19,13 @@ leaves (``router``, ``w_gate``, ``w_up``, ``w_down`` and the shared
 expert's ``shared.*``) into :class:`~repro_torch.models.moe.MoE`, each
 cast to the parameter's dtype (JAX's fp32 masters become bf16 copies
 where the port stores the model dtype; the router stays fp32, as JAX
-reads it).  Nothing here imports JAX: only numpy arrays cross.
+reads it).
+
+The encoder-decoder pytree (whisper) is ``embed``, ``dec_pos``,
+``enc_final``, ``dec_final`` and the ``encoder`` / ``decoder`` blocks,
+each stacked over its layers (JAX's ``vmap`` init): they are unstacked
+into the two ``nn.ModuleList``s of an :class:`~repro_torch.models.encdec
+.EncDec`.  Nothing here imports JAX: only numpy arrays cross.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import torch
 
 from repro_torch.device import resolve_device, torch_dtype
 
-from . import transformer
+from . import encdec, transformer
 
 
 def _copy(dst: torch.nn.Parameter, arr, where: str) -> None:
@@ -53,10 +59,13 @@ def _load_module(module, tree: dict, where: str) -> None:
 
 
 def params_from_numpy(cfg, tree: dict, device=None, dtype=None):
-    """JAX pytree of numpy arrays -> the port's :class:`LM` on ``device``
-    in ``dtype`` (default ``cfg.dtype``; norm parameters stay fp32)."""
+    """JAX pytree of numpy arrays -> the port's :class:`LM` (or, for an
+    encoder-decoder config, :class:`EncDec`) on ``device`` in ``dtype``
+    (default ``cfg.dtype``; norm parameters stay fp32)."""
     device = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
+    if cfg.is_encoder_decoder:
+        return _encdec_from_numpy(cfg, tree, device, dtype)
     lm = transformer.init_lm(None, cfg, device, dtype)
     _, prefix_len, period, n_rep = transformer.structure(cfg)
     top = {k: v for k, v in tree.items() if k not in ("prefix", "period")}
@@ -71,6 +80,23 @@ def params_from_numpy(cfg, tree: dict, device=None, dtype=None):
     for i, (layer, block) in enumerate(zip(lm.layers, blocks)):
         _load_module(layer, block, f"layers[{i}]")
     return lm
+
+
+def _encdec_from_numpy(cfg, tree: dict, device, dtype):
+    """Whisper pytree -> :class:`EncDec`, the stacked layers unstacked."""
+    model = encdec.init_encdec(None, cfg, device, dtype)
+    stacks = ("encoder", "decoder")
+    _load_module(model, {k: v for k, v in tree.items() if k not in stacks},
+                 "params")
+    for name in stacks:
+        layers = getattr(model, name)
+        n = len(np.asarray(tree[name]["norm1"]["scale"]))
+        if n != len(layers):
+            raise ValueError(f"pytree holds {n} {name} layers, config "
+                             f"{len(layers)}")
+        for i, layer in enumerate(layers):
+            _load_module(layer, _index(tree[name], i), f"{name}[{i}]")
+    return model
 
 
 def _index(tree, r: int):

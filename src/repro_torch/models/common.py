@@ -3,7 +3,8 @@
 Port of ``repro.models.common``.  Parameters live in ``nn.Module``s
 (see :mod:`.blocks`, :mod:`.transformer`); every function here is
 ``fn(params, x, ...) -> y`` on tensors, with the same arithmetic as the
-JAX reference: norms in fp32 with the result cast back, RoPE in fp32.
+JAX reference: norms in fp32 with the result cast back, RoPE in fp32,
+Whisper's sinusoidal positions in float64 then fp32.
 """
 
 from __future__ import annotations
@@ -105,3 +106,13 @@ def apply_rope(x, positions, inv_freq):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(length: int, dim: int, device=None):
+    """Whisper-style fixed sinusoidal embeddings (length, dim): computed
+    in float64 with numpy, as the JAX package does, then float32."""
+    pos = np.arange(length)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / dim)
+    emb = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return torch.tensor(emb, dtype=torch.float32, device=device)

@@ -1,7 +1,8 @@
-"""Model -> Parallax DAG exporter (the decoder half).
+"""Model -> Parallax DAG exporter.
 
 Port of ``repro.models.dag_export``: builds a :class:`~repro_torch.core.
-graph.Graph` for a decoder :class:`~repro_torch.models.transformer.LM`
+graph.Graph` for a decoder :class:`~repro_torch.models.transformer.LM`,
+or the encoder of a Whisper :class:`~repro_torch.models.encdec.EncDec`,
 at a given (batch, seq), with executable node fns closing over its
 weights — so the paper's pipeline (partition / branch / arena / schedule)
 and :class:`~repro_torch.core.PlanExecutor` run against the actual
@@ -23,8 +24,11 @@ mixer is a 4-node chain whose SSD scan node is marked unsupported (the
 paper's "unsupported kernel" fallback class) and runs the ``ssd_scan``
 kernel.  An MoE channel is a router node marked unsupported (data-
 dependent top-k dispatch), E parallel two-node expert chains (the §3.1
-β-balanced branches) and a combine.  The Whisper encoder arrives with
-its slice.
+β-balanced branches) and a combine.  The Whisper encoder graph is JAX's
+node for node: it reuses the decoder's attention chains, so every chain
+carries the unsupported RoPE node and its core the causal mask, though
+``encdec.encode`` applies neither (a difference of the reference's
+graph, kept here).
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ from repro_torch.core.flops import (attention_flops, elementwise_flops,
                                     ssd_scan_flops)
 from repro_torch.kernels.ssd_scan import ssd_scan
 
-from .common import apply_rope, layer_norm, rms_norm
+from .common import apply_rope, layer_norm, rms_norm, sinusoidal_positions
 from .ssm import _causal_conv, _dims, _gated_norm, _split_proj, _ssm_inputs
 
 
@@ -429,5 +433,45 @@ def export_graph(cfg, params, batch: int, seq: int, flops_cfg=None):
 
 def export_encoder_graph(cfg, params, batch: int, seq: int,
                          flops_cfg=None):
-    raise NotImplementedError(
-        "the Whisper encoder DAG arrives with the Whisper slice")
+    """Whisper encoder -> (graph, make_inputs): sinusoidal position add,
+    then per layer a layernorm, per-head attention branches (the
+    decoder's chains), a residual, a layernorm, the GELU MLP and a
+    residual; the final norm.  ``params`` is the port's
+    :class:`~repro_torch.models.encdec.EncDec`; ``make_inputs(rng)``
+    draws the frames with numpy (JAX's draw)."""
+    fc = flops_cfg or cfg
+    b = GraphBuilder()
+    d = cfg.d_model
+    dF = fc.d_model
+    B, S = batch, seq
+    device = params.embed.device
+    frames = b.input((B, S, d), name="frames")
+    pos = _PerDevice(sinusoidal_positions(S, d, device))
+
+    x = b.op("pos_embed", "elementwise", [frames],
+             [TensorSpec((B, S, d))], flops=elementwise_flops(B * S * dF),
+             fn=lambda f: f + pos.on(f)[None])
+    positions = torch.arange(S, device=device)[None, :]
+    for i, bp in enumerate(params.encoder):
+        h = _norm_node(b, cfg, bp.norm1, x, f"E{i}.norm1", B, S)
+        y = _export_attention(b, cfg, bp.attn, h, f"E{i}", B, S,
+                              positions, fc)
+        x = b.op(f"E{i}.res1", "elementwise", [x, y],
+                 [TensorSpec((B, S, d))],
+                 flops=elementwise_flops(B * S * dF),
+                 fn=lambda a, c: a + c)
+        h2 = _norm_node(b, cfg, bp.norm2, x, f"E{i}.norm2", B, S)
+        y2 = _export_mlp(b, cfg, bp.mlp, h2, f"E{i}", B, S, fc)
+        x = b.op(f"E{i}.res2", "elementwise", [x, y2],
+                 [TensorSpec((B, S, d))],
+                 flops=elementwise_flops(B * S * dF),
+                 fn=lambda a, c: a + c)
+    x = _norm_node(b, cfg, params.enc_final, x, "enc_final", B, S)
+    b.mark_output(x)
+    g = b.build()
+
+    def make_inputs(rng):
+        return {frames: rng.standard_normal((B, S, d)).astype(np.float32)
+                * 0.1}
+
+    return g, make_inputs

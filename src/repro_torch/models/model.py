@@ -1,6 +1,6 @@
 """Model registry: ModelConfig -> uniform serving API.
 
-Port of ``repro.models.model`` for the decoder family::
+Port of ``repro.models.model``::
 
     api = build_model(cfg, device="cuda")
     params = api.init(torch.Generator(device="cuda").manual_seed(0))
@@ -18,10 +18,13 @@ as :func:`_moe_impl_for` picks and JAX picks) and ``ssm`` (mamba2:
 Mamba2 mixers with no channel mix, whose caches are per-row SSM state
 and conv windows, on the dense and the paged path alike;
 ``prefill_fn`` needs S to be a multiple of ``cfg.ssm.chunk``), and
-hybrids of the two mixers.  Weights are stored in ``cfg.dtype`` (or
-``dtype``); norm parameters, the MoE router and the SSM's ``A_log``,
-``D`` and ``dt_bias`` stay fp32.  ``loss_fn`` arrives with the training
-slice, encoder-decoder models with the Whisper slice.
+hybrids of the two mixers.  It serves the encoder-decoder family
+(whisper) through :func:`_build_encdec`: ``prefill_fn`` takes
+``{"frames": (B, S_enc, d), "tokens": (B, 1)}`` (frames from
+:func:`stub_audio_frontend`), dense caches only (``init_paged_caches``
+is None).  Weights are stored in ``cfg.dtype`` (or ``dtype``); norm
+parameters, the MoE router and the SSM's ``A_log``, ``D`` and
+``dt_bias`` stay fp32.  ``loss_fn`` arrives with the training slice.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch
 
 from repro_torch.device import resolve_device, torch_dtype
 
-from . import transformer
+from . import encdec, transformer
 
 
 @dataclass
@@ -47,8 +50,9 @@ class ModelAPI:
     decode_fn: Callable            # (params, caches, batch) -> (logits, caches)
     # (batch, max_len, dtype, ring, tile) -> dense per-row caches
     init_caches: Callable
-    # (batch, num_blocks, block_size, dtype) -> physically paged caches
-    init_paged_caches: Callable
+    # (batch, num_blocks, block_size, dtype) -> physically paged caches;
+    # None for families without a paged decode path (encoder-decoder)
+    init_paged_caches: "Callable | None" = None
 
 
 def _moe_impl_for(cfg, distributed: bool):
@@ -59,23 +63,25 @@ def _moe_impl_for(cfg, distributed: bool):
     return "ep"
 
 
+def _check_generator(gen, device):
+    if gen is not None and gen.device.type != device.type:
+        raise ValueError(f"generator on {gen.device}, model on {device}")
+
+
+def _loss_fn(params, batch):
+    raise NotImplementedError("loss_fn arrives with the training slice")
+
+
 def build_model(cfg, device=None, dtype=None) -> ModelAPI:
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            "encoder-decoder models arrive with the Whisper slice")
-    moe_impl = _moe_impl_for(cfg, distributed=False)
     device = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
+    if cfg.is_encoder_decoder:
+        return _build_encdec(cfg, device, dtype)
+    moe_impl = _moe_impl_for(cfg, distributed=False)
 
     def init(gen):
-        if gen is not None and gen.device.type != device.type:
-            raise ValueError(f"generator on {gen.device}, model on "
-                             f"{device}")
+        _check_generator(gen, device)
         return transformer.init_lm(gen, cfg, device, dtype)
-
-    def loss_fn(params, batch):
-        raise NotImplementedError(
-            "loss_fn arrives with the training slice")
 
     def prefill_fn(params, batch):
         return transformer.prefill_lm(
@@ -100,5 +106,62 @@ def build_model(cfg, device=None, dtype=None) -> ModelAPI:
             cfg, batch, num_blocks, block_size,
             torch_dtype(cache_dtype or dtype), device)
 
-    return ModelAPI(cfg, device, dtype, init, loss_fn, prefill_fn,
+    return ModelAPI(cfg, device, dtype, init, _loss_fn, prefill_fn,
                     decode_fn, init_caches, init_paged_caches)
+
+
+# --------------------------------------------------------------------------
+# encoder-decoder family (whisper)
+# --------------------------------------------------------------------------
+
+DEC_LEN = 448                      # whisper decoder context
+
+
+def _build_encdec(cfg, device, dtype) -> ModelAPI:
+    """``prefill_fn`` = the encoder, the cross K/V and the first decoder
+    token (``batch["tokens"][:, :1]`` at position 0) on fresh caches of
+    ``DEC_LEN`` slots, which it drops, returning (B, V) logits, as JAX's
+    does; a decode loop calls ``encdec.prefill_encdec`` on caches of its
+    own, then ``decode_fn``.  No paged path (JAX has none)."""
+
+    def init(gen):
+        _check_generator(gen, device)
+        return encdec.init_encdec(gen, cfg, device, dtype)
+
+    def prefill_fn(params, batch):
+        frames = torch.as_tensor(batch["frames"], device=device)
+        tokens = torch.as_tensor(batch["tokens"], device=device)
+        caches = encdec.init_dec_caches(cfg, frames.shape[0], DEC_LEN,
+                                        dtype, device)
+        _, caches = encdec.prefill_encdec(params, cfg, frames, caches)
+        logits, _ = encdec.decode_step_encdec(params, cfg, caches,
+                                              tokens[:, :1], 0)
+        return logits
+
+    def decode_fn(params, caches, batch):
+        return encdec.decode_step_encdec(
+            params, cfg, caches, batch["tokens"], batch["cache_len"],
+            active=batch.get("active"))
+
+    def init_caches(batch, max_len, cache_dtype=None, ring=False,
+                    tile=16):
+        del ring
+        return encdec.init_dec_caches(
+            cfg, batch, max_len, torch_dtype(cache_dtype or dtype), device,
+            tile)
+
+    return ModelAPI(cfg, device, dtype, init, _loss_fn, prefill_fn,
+                    decode_fn, init_caches)
+
+
+# --------------------------------------------------------------------------
+# frontend stubs (smoke tests / examples need concrete inputs)
+# --------------------------------------------------------------------------
+
+def stub_audio_frontend(gen, cfg, batch, n_frames):
+    """Mel+conv frontend stub: precomputed frame embeddings (batch,
+    n_frames, d), N(0, 1) * 0.02 in the model dtype, on ``gen``'s
+    device."""
+    x = torch.randn((batch, n_frames, cfg.d_model), generator=gen,
+                    device=gen.device) * 0.02
+    return x.to(torch_dtype(cfg.dtype))

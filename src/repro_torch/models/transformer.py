@@ -54,10 +54,11 @@ def init_lm(gen, cfg, device, dtype) -> LM:
 
 def embed_tokens(params: LM, cfg, tokens, frontend_embeds=None):
     """tokens: (B, S) int -> (B, S, d).  Frontend embeddings (vision
-    patches, audio frames) arrive with the Qwen2-VL and Whisper slices."""
+    patches) arrive with the Qwen2-VL slice; Whisper's audio frames enter
+    through :mod:`.encdec`."""
     if frontend_embeds is not None:
         raise NotImplementedError(
-            "frontend embeddings arrive with the Qwen2-VL / Whisper slices")
+            "frontend embeddings arrive with the Qwen2-VL slice")
     return params.embed[tokens]
 
 

@@ -1,14 +1,20 @@
 """The port's model -> DAG exporter against the JAX exporter.
 
-``stablelm-3b`` reduced (2 layers, d_model 256): the JAX model's params
-are bridged into the port's ``LM`` (``models/bridge.py``, fp32), both
-packages export the graph at batch 1, seq 16, and the graphs must agree
-node by node (names, op classes, flops, supported flags) and in their
-logits.  Tolerance rtol = atol = 2e-5: the same fp32 arithmetic in other
-summation orders (measured max abs difference 1.4e-6 on logits of
-magnitude 1.2, on the CPU).  The port's graph then runs through the
-§3 planner and every executor mode, bit-identical to its own oracle:
-this DAG has no pure-matmul group, so no mode reaches the grouped kernel.
+``stablelm-3b`` reduced (2 layers, d_model 256; the decoder graph) and
+``whisper-tiny`` reduced (2 encoder layers, d_model 256; the encoder
+graph): the JAX model's params are bridged into the port's ``LM`` /
+``EncDec`` (``models/bridge.py``, fp32), both packages export the graph
+at batch 1, seq 16, and the graphs must agree node by node (names, op
+classes, flops, supported flags) and in their outputs (logits; the
+encoder's final hidden states).  Tolerance rtol = atol = 2e-5: the same
+fp32 arithmetic in other summation orders (measured max abs difference
+1.4e-6 on stablelm logits of magnitude 1.2, on the CPU).  Whisper's
+graph is held to JAX's graph, not to ``encode``: JAX's encoder graph
+reuses the decoder's attention chains (RoPE node, causal mask), which
+the model's bidirectional encoder does not have.  The port's graph then
+runs through the §3 planner and every executor mode, bit-identical to
+its own oracle: these DAGs have no pure-matmul group, so no mode reaches
+the grouped kernel.
 """
 
 from types import SimpleNamespace
@@ -29,25 +35,30 @@ CFG = ParallaxConfig(budget=1 << 30)
 ARCH, BATCH, SEQ = "stablelm-3b", 1, 16
 
 
-@pytest.fixture(scope="module")
-def pair():
+@pytest.fixture(scope="module", params=[ARCH, "whisper-tiny"])
+def pair(request):
     """(JAX graph, JAX inputs, port graph, port inputs) on one set of
-    weights."""
+    weights; ``width`` is the output's last dimension."""
     jax = pytest.importorskip("jax")
     from repro.configs import get_config as jax_config
     from repro.models import build_model
     from repro.models.dag_export import export_graph as jax_export
     from repro_torch.models.bridge import params_from_numpy
 
-    jcfg = jax_config(ARCH).reduced()
+    jcfg = jax_config(request.param).reduced()
     params = build_model(jcfg).init(jax.random.key(0))
     gj, make_j = jax_export(jcfg, params, BATCH, SEQ)
-    cfg = get_config(ARCH).reduced()
+    cfg = get_config(request.param).reduced()
     lm = params_from_numpy(cfg, jax.tree.map(np.asarray, params),
                            device="cpu", dtype="float32")
-    gt, make_t = export_decoder_graph(cfg, lm, BATCH, SEQ)
+    if cfg.is_encoder_decoder:
+        gt, make_t = export_encoder_graph(cfg, lm, BATCH, SEQ)
+        width = cfg.d_model
+    else:
+        gt, make_t = export_decoder_graph(cfg, lm, BATCH, SEQ)
+        width = cfg.vocab_size
     return SimpleNamespace(gj=gj, make_j=make_j, gt=gt, make_t=make_t,
-                           cfg=cfg, lm=lm)
+                           cfg=cfg, lm=lm, width=width)
 
 
 def _nodes(g):
@@ -71,7 +82,7 @@ def test_logits_match_jax(pair):
     assert np.array_equal(env_t[pair.gt.inputs[0]], env_j[pair.gj.inputs[0]])
     got = PlanExecutor(compile_plan(pair.gt, CFG), "reference",
                        device="cpu")(env_t).outputs[pair.gt.outputs[0]]
-    assert got.shape == (BATCH, SEQ, pair.cfg.vocab_size)
+    assert got.shape == (BATCH, SEQ, pair.width)
     np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5, atol=2e-5)
 
 
@@ -127,11 +138,20 @@ def test_flops_cfg_scales_metadata_not_topology():
 
 
 def test_later_slices_raise():
-    cfg = get_config("whisper-tiny")
-    with pytest.raises(NotImplementedError, match="Whisper slice"):
-        export_graph(cfg, None, 1, 16)
-    with pytest.raises(NotImplementedError, match="Whisper slice"):
-        export_encoder_graph(cfg, None, 1, 16)
+    # the Whisper encoder graph has landed (the parametrised cases above
+    # hold it to JAX's); its training half waits for the training slice
+    from repro_torch.models import build_model, encdec
+
+    cfg = get_config("whisper-tiny").reduced()
+    api = build_model(cfg, device="cpu")
+    model = api.init(torch.Generator().manual_seed(0))
+    g, _ = export_graph(cfg, model, 1, 16)
+    assert g.outputs and "enc_final" in [n.name for n in g.nodes.values()]
+    for fn in (lambda: api.loss_fn(model, {}),
+               lambda: encdec.encdec_loss(model, cfg, None, None, None),
+               lambda: encdec.decode_train(model, cfg, None, None)):
+        with pytest.raises(NotImplementedError, match="training slice"):
+            fn()
     # MoE blocks have landed (tests/test_torch_moe.py holds them to JAX):
     # node by node equal to the JAX exporter's on a reduced MoE config
     jax = pytest.importorskip("jax")

@@ -231,6 +231,43 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     ``reference``.  Whisper's launch counts print on a line of their own
     before the ``kernels`` line.
 
+23. training, kernel gradients (last, after 22): each differentiable
+    kernel's ``autograd.Function`` (its forward is the wrapper, its
+    backward autograd of the plain version on the saved inputs) at the
+    training path's shapes: ``flash_attention`` bf16 at stablelm-3b's
+    prefill shape (B=2, H=K=32, D=80, S=2048, causal), whisper-tiny's
+    encoder (B=8, H=K=6, D=64, S=T=1500) and cross shape (B=4, S=128
+    against T=1500), ``ssd_scan`` fp32 at mamba2-370m's (b=2, S=2048,
+    H=32, P=64, N=128, chunk 256), ``branch_matmul`` bf16 at dbrx's
+    gate/up widths with a top-4 routing's counts over 512 tokens: the
+    forward bit-identical to the bare kernel, every gradient
+    bit-identical to autograd's of the plain version, the bare wrapper
+    refusing an input that requires grad, the rows past the counts with
+    zero gradient; the forward, and forward + backward of the Function,
+    the plain version and SDPA / ``torch.bmm`` timed beside a bound;
+24. stablelm-3b at full width (32 layers, B=8, S=128), 25. mamba2-370m
+    (48 layers, B=4, S=512) and 26. whisper-tiny (4 + 4 layers, B=4,
+    1500 frames, 128 tokens), each in bf16 with AdamW on fp32 masters
+    (lr 3e-3) on ``SyntheticTokens(seed=0)``: step 1's loss and
+    gradient norm through the kernels against the same with the three
+    plain versions patched in (normwise 2e-2), one train step profiled
+    (busy and idle share), then ``launch.train.train(..., reduced=
+    False)`` for 5 steps: every loss and grad_norm finite, each step
+    launching every kernel of a layer twice (forward and remat
+    recompute; whisper's encoder once: 64, 96 and 20 a step), step 1
+    bit-identical to the checked step, ms a step, tokens/s and peak
+    memory printed; then the kimi-like reduced MoE in bf16 (4
+    ``flash_attention`` and 6 ``branch_matmul`` a step; no full-width MoE
+    layer trains on one card), and ``python -m repro_torch.launch.train
+    --arch stablelm-3b --full --steps 3``;
+27. ``examples/torch_train_small.py``: reduced stablelm-3b, 200 steps,
+    the loss below 0.7x its first value, the checkpoint restored bit
+    for bit.  The ``kernels`` line gains three rows,
+    ``flash_attention_grad``, ``ssd_scan_grad`` and
+    ``branch_matmul_grad``: forward + backward times (``fwd_ms`` the
+    forward), launches in the stablelm-3b, mamba2-370m and MoE training
+    runs.
+
 dbrx-132b and kimi-k2 are never resident together, nor beside another
 full-width model: each is freed before the next is built.
 
@@ -350,6 +387,44 @@ WHISPER_NORMWISE = 1e-5            # hetero F: CPU against card fp32 sums
 # 2e-3; keys of a partial tile that leaked in with weight exp(0) would
 # shrink the 1500-key encoder rows by ~1.5 % and read ~1.5e-2
 WHISPER_BF16_NORMWISE = 5e-3
+
+# the training phases (slice 8)
+GRAD_FLASH = (                     # label, B, H, K, S, T, D, causal
+    ("stablelm-3b prefill", 2, 32, 32, 2048, 2048, 80, True),
+    ("whisper encoder", 8, 6, 6, 1500, 1500, 64, False),
+    ("whisper cross", 4, 6, 6, 128, 1500, 64, False),
+)
+GRAD_SSD = dict(b=2, S=2048, H=32, G=1, N=128, L=256)    # mamba2-370m
+GRAD_GEMM = dict(E=16, k=4, T=512, d=6144, f=10752)      # dbrx gate/up
+GRAD_ITERS = 10                    # timed forward (+ backward) calls
+TRAIN_RUNS = (                     # arch, batch, seq: full width
+    ("stablelm-3b", 8, 128),
+    ("mamba2-370m", 4, 512),
+    ("whisper-tiny", 4, 128),
+)
+TRAIN_STEPS, TRAIN_LR = 5, 3e-3
+# step 1's loss and grad_norm through the kernels against the plain
+# versions, relative: ~10x the largest reading of the first chip run
+# (H100 80GB HBM3, 700 W: loss 7.6e-5, grad_norm 1.8e-4)
+TRAIN_TOL = 2e-3
+GRAD_BF16_NORMWISE = WHISPER_BF16_NORMWISE  # a bf16 Function's output
+GRAD_FP32_NORMWISE = 2e-5                   # the fp32 scan's
+# step 1's worst leaf gradient, normwise against the plain versions':
+# sound runs read 2.2e-2 to 1.2e-1, the planted faults 0.82 to 1.7
+LEAF_TOL = 0.5
+# planted faults (``faulty_kernels``): flash_attention with window
+# FAULT_WINDOW (keys more than 32 behind a query masked out), ssd_scan
+# with each token's own term dropped (a strictly causal mask) or
+# restarting every chunk from a zero state (the state pass dropped),
+# branch_matmul one row short in every group.  The kernel checks must
+# catch each, step 1's checks all but the restart: at random init
+# mamba2-370m's state decays within a chunk, and step 1 moved 1.5e-5,
+# 2.5e-5 and 0.16 (worst leaf), so that one is read and not held
+# (readings on an H100 80GB HBM3 at 700 W)
+FAULT_WINDOW = 32
+FUNCTIONS = {"flash_attention": "FlashAttentionFn", "ssd_scan": "SSDScanFn",
+             "branch_matmul": "BranchMatmulFn"}
+LEARN_STEPS = 200                  # examples/torch_train_small.py
 
 KERNELS = {
     "paged_decode_attention": dict(
@@ -1203,7 +1278,7 @@ KERNEL_FAMILIES = (                # (substring of the kernel name, family)
 HOST_OPS = 10                      # host rows of a step profile
 
 
-def device_profile(label, fn, n, bound, wrappers=()):
+def device_profile(label, fn, n, bound, wrappers=(), grad=False):
     """Where one call of ``fn`` spends its time: host+device wall time by
     the host clock, and the card's busy time by ``torch.profiler`` (the
     sum of its kernels, which run in order on one stream), split by
@@ -1212,11 +1287,13 @@ def device_profile(label, fn, n, bound, wrappers=()):
     the family's name (its wrapper calls in the profiled window) is set
     beside the family's device kernels.  Then the host side: the
     operators and CUDA runtime calls with the most self time a call
-    (under the profiler, which adds its own cost to each)."""
+    (under the profiler, which adds its own cost to each).  ``grad``:
+    run ``fn`` with gradients on (a train step), else under
+    ``torch.no_grad()``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad():
+    with contextlib.nullcontext() if grad else torch.no_grad():
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -3442,6 +3519,555 @@ def whisper_phases(da, fa, device, others):
            if v}
 
 
+# --------------------------------------------------------------------------
+# phases 23-27: training (slice 8)
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def patched_kernels(flash, scan, gemm):
+    """``flash``, ``scan`` and ``gemm`` patched into the training path in
+    place of the three differentiable kernels' wrappers, each where the
+    models look it up: ``flash_attention`` in its module (``attend_bshd``
+    calls it there), ``ssd_scan`` in ``models.ssm``, ``branch_matmul`` in
+    ``models.moe``."""
+    import importlib
+
+    mods = [(importlib.import_module(m), n) for m, n in (
+        ("repro_torch.kernels.flash_attention.flash_attention",
+         "flash_attention"),
+        ("repro_torch.models.ssm", "ssd_scan"),
+        ("repro_torch.models.moe", "branch_matmul"))]
+    saved = [getattr(m, n) for m, n in mods]
+    for (m, n), fn in zip(mods, (flash, scan, gemm)):
+        setattr(m, n, fn)
+    try:
+        yield
+    finally:
+        for (m, n), fn in zip(mods, saved):
+            setattr(m, n, fn)
+
+
+def plain_kernels(fa, ss, bm):
+    """The three kernels' plain versions patched into the training
+    path."""
+    return patched_kernels(fa.flash_attention_plain, ss.ssd_scan_plain,
+                           bm.branch_matmul_plain)
+
+
+def faulty_kernels(fa, ss, bm, scan_fault="diagonal"):
+    """The three kernels, each with its planted fault, as wrappers that a
+    model or a check calls in place of the sound ones.  ``scan_fault``:
+    "diagonal" (y_t without its own token's term C_t.B_t dt_t x_t) or
+    "restart" (every chunk from a zero state)."""
+    def flash(q, k, v, causal=True, window=0):
+        return fa.flash_attention(q, k, v, causal, window or FAULT_WINDOW)
+
+    def scan(x, dt, A, B, C, chunk):
+        if scan_fault == "diagonal":
+            cb = (C * B).sum(-1).repeat_interleave(
+                x.shape[2] // B.shape[2], dim=2)
+            return ss.ssd_scan(x, dt, A, B, C, chunk) \
+                - (cb * dt)[..., None] * x
+        n = x.shape[0] * x.shape[1] // chunk      # one row a chunk
+
+        def rows(t):
+            return t.reshape(n, chunk, *t.shape[2:])
+        return ss.ssd_scan(rows(x), rows(dt), A, rows(B), rows(C),
+                           chunk).reshape(x.shape)
+
+    def gemm(x, w, counts=None):
+        short = (counts - 1).clamp(min=0) if counts is not None else \
+            torch.full((x.shape[0],), max(x.shape[1] - 1, 0),
+                       dtype=torch.int32, device=x.device)
+        return bm.branch_matmul(x, w, short)
+    return flash, scan, gemm
+
+
+def fwd_bwd(fn, inputs, dout):
+    """One forward and backward of ``fn`` on fresh leaves of ``inputs``."""
+    def run():
+        xs = [x.detach().requires_grad_(True) for x in inputs]
+        return torch.autograd.grad(fn(*xs), xs, dout)
+    return run
+
+
+def grad_case(name, label, fn, plain, faults, inputs, flush, bound, limit,
+              library=None):
+    """One differentiable kernel at one shape.  ``fn`` is its wrapper,
+    ``plain`` the plain version and ``faults`` {label: the wrapper with a
+    planted fault}, each with its other arguments bound, over the
+    differentiable
+    ``inputs``.  On the card: the wrapper's output carries the kernel's
+    Function's graph, and its forward equals the wrapper's without a
+    graph bit for bit; every gradient equals autograd's gradient of the
+    plain version bit for bit (the Function's backward is that same
+    computation); the output is within ``limit`` normwise of the plain
+    version's, and no faulty wrapper's is.  Timed: the forward (no
+    graph), and forward + backward of the wrapper, of the plain version
+    and of ``library`` (one PyTorch call computing the same function, or
+    None).  Returns (max abs err of the output against the plain
+    version's, timing)."""
+    gen = torch.Generator(device=inputs[0].device).manual_seed(9)
+    with torch.no_grad():
+        want = fn(*inputs)
+    xs = [x.detach().requires_grad_(True) for x in inputs]
+    out = fn(*xs)
+    graph = type(out.grad_fn).__name__
+    if graph != f"{FUNCTIONS[name]}Backward":
+        raise AssertionError(f"{name}: the wrapper's output carries "
+                             f"{graph}, not its Function's graph")
+    dout = torch.randn(out.shape, generator=gen, device=out.device
+                       ).to(out.dtype)
+    grads = torch.autograd.grad(out, xs, dout)
+    ys = [x.detach().requires_grad_(True) for x in inputs]
+    pout = plain(*ys)
+    pgrads = torch.autograd.grad(pout, ys, dout)
+    torch.cuda.synchronize()
+    identical(name, f"{label}: forward with the Function's graph vs "
+              f"without a graph", out.detach(), want)
+    for i, (g, p) in enumerate(zip(grads, pgrads)):
+        identical(name, f"{label}: gradient of input {i} vs autograd of "
+                  f"the plain version", g, p)
+    pout = pout.detach()
+    err = (out.detach().float() - pout.float()).abs().max().item()
+    close = normwise(out.detach(), pout)
+    with torch.no_grad():
+        wrong = {k: normwise(f(*inputs), pout) for k, f in faults.items()}
+    log(f"{name} {label}: output vs plain normwise {close:.3e} (limit "
+        f"{limit}); planted faults read "
+        + ", ".join(f"{k} {w:.3e}" for k, w in wrong.items()))
+    if not close <= limit:
+        raise AssertionError(f"{name} {label}: output off the plain "
+                             f"version")
+    if not min(wrong.values()) > limit:
+        raise AssertionError(f"{name} {label}: the check passes a "
+                             f"planted fault")
+    del grads, pgrads, out, pout, xs, ys
+    with torch.no_grad():
+        fwd = median_ms(lambda: fn(*inputs), flush, GRAD_ITERS)
+    t = dict(fwd_ms=fwd,
+             ms=median_ms(fwd_bwd(fn, inputs, dout), flush, GRAD_ITERS),
+             plain_ms=median_ms(fwd_bwd(plain, inputs, dout), flush,
+                                GRAD_ITERS),
+             library_ms=None if library is None else median_ms(
+                 fwd_bwd(library, inputs, dout), flush, GRAD_ITERS),
+             bound=bound)
+    lib = "" if library is None else \
+        f", library {t['library_ms']:.4f} ms"
+    log(f"{name} {label}: forward {fwd:.4f} ms; forward + backward: "
+        f"Function {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms{lib}, "
+        f"bound {bound[0]:.5f} ms ({bound[1]}); output vs plain max abs "
+        f"{err:.3e}")
+    return err, t
+
+
+def bound_of(nbytes, flops, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def grad_phase(fa, ss, bm, device):
+    """Phase 23: the three kernels' ``autograd.Function``s at the training
+    path's shapes: ``flash_attention`` bf16 at stablelm-3b's prefill
+    shape and whisper-tiny's encoder and cross shapes (beside SDPA's
+    forward + backward), ``ssd_scan`` fp32 at mamba2-370m's (no PyTorch
+    call computes it), ``branch_matmul`` bf16 at dbrx's gate/up widths
+    with a top-4 routing's counts over 512 tokens (beside ``torch.bmm``'s
+    forward + backward, which computes every row).  Returns {row name:
+    (max abs err, timing at the first shape)}."""
+    from repro_torch.models.moe import dropless_capacity
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    bf16 = torch.bfloat16
+    bad_flash, bad_scan, bad_gemm = faulty_kernels(fa, ss, bm)
+    restart = faulty_kernels(fa, ss, bm, "restart")[1]
+    rows, worst, first = {}, 0.0, None
+    for label, B_, H_, K_, S_, T_, D_, causal in GRAD_FLASH:
+        q = torch.randn((B_, H_, S_, D_), generator=gen, device=device
+                        ).to(bf16)
+        k, v = (torch.randn((B_, K_, T_, D_), generator=gen, device=device
+                            ).to(bf16) for _ in range(2))
+        # forward 4 D a pair, backward 8 (dV, dP, dQ, dK); q, k, v, dout
+        # read, out, dq, dk, dv written
+        pairs = flash_pairs(S_, T_, causal, 0) * B_ * H_
+        bound = bound_of(4 * (q.numel() + k.numel()) * 2, 12 * D_ * pairs,
+                         bf16)
+        e, t = grad_case(
+            "flash_attention", f"{label} bf16 B={B_} H={H_} K={K_} S={S_} "
+            f"T={T_} D={D_} {'causal' if causal else 'non-causal'}",
+            lambda q, k, v: fa.flash_attention(q, k, v, causal),
+            lambda q, k, v: fa.flash_attention_plain(q, k, v, causal),
+            {"window": lambda q, k, v: bad_flash(q, k, v, causal)},
+            [q, k, v], flush, bound, GRAD_BF16_NORMWISE,
+            lambda q, k, v: sdpa_flash(q, k, v, causal, 0))
+        worst, first = max(worst, e), first or t
+        del q, k, v
+        torch.cuda.empty_cache()
+    rows["flash_attention_grad"] = (worst, first)
+
+    g = GRAD_SSD
+    args = ssd_inputs(np.random.default_rng(13), g["b"], g["S"], g["H"],
+                      g["G"], g["N"], device, False)
+    from repro_torch.core.flops import ssd_scan_flops
+
+    # the recurrence's operations, thrice (each product's backward is two
+    # products); x, dt, A, B, C, dy read, y and each gradient written
+    n_in = sum(t.numel() for t in args)
+    bound = bound_of(4 * (2 * n_in + 2 * args[0].numel()),
+                     3 * ssd_scan_flops(g["b"], g["S"], g["H"], SSD_P,
+                                        g["N"]), torch.float32)
+    L = g["L"]
+    rows["ssd_scan_grad"] = grad_case(
+        "ssd_scan", f"mamba2-370m fp32 b={g['b']} S={g['S']} H={g['H']} "
+        f"P={SSD_P} N={g['N']} chunk {L}",
+        lambda *a: ss.ssd_scan(*a, L), lambda *a: ss.ssd_scan_plain(*a, L),
+        {"diagonal": lambda *a: bad_scan(*a, L),
+         "restart": lambda *a: restart(*a, L)}, list(args), flush, bound,
+        GRAD_FP32_NORMWISE)
+    del args
+    torch.cuda.empty_cache()
+
+    g = GRAD_GEMM
+    counts = routing_counts(gen, g["E"], g["k"], g["T"], device)
+    cap = dropless_capacity(counts, g["T"])
+    x = torch.randn((g["E"], cap, g["d"]), generator=gen, device=device
+                    ).to(bf16)
+    w = (torch.randn((g["E"], g["d"], g["f"]), generator=gen, device=device)
+         / np.sqrt(g["d"])).to(bf16)
+    routed, live = int(counts.sum()), int((counts > 0).sum())
+    # forward and the two backward products on the routed rows; x, dx on
+    # the routed rows, w and dw of the experts with a row, out and dout
+    bound = bound_of(2 * (2 * routed * g["d"] + 2 * live * g["d"] * g["f"]
+                          + 2 * g["E"] * cap * g["f"]),
+                     3 * 2 * routed * g["d"] * g["f"], bf16)
+    e, t = grad_case(
+        "branch_matmul", f"dbrx gate/up bf16 E={g['E']} cap={cap} "
+        f"d={g['d']} f={g['f']}, top-{g['k']} counts of {g['T']} tokens "
+        f"({routed} rows)",
+        lambda x, w: bm.branch_matmul(x, w, counts),
+        lambda x, w: bm.branch_matmul_plain(x, w, counts),
+        {"short": lambda x, w: bad_gemm(x, w, counts)}, [x, w], flush,
+        bound,
+        GRAD_BF16_NORMWISE, torch.bmm)
+    xs = x.detach().requires_grad_(True)
+    gx, = torch.autograd.grad(bm.branch_matmul(xs, w, counts), xs,
+                              torch.ones((g["E"], cap, g["f"]), dtype=bf16,
+                                         device=device))
+    past = torch.arange(cap, device=device)[None, :] >= counts[:, None]
+    if torch.count_nonzero(gx[past]):
+        raise AssertionError("branch_matmul: rows past the counts got a "
+                             "gradient")
+    log("branch_matmul: rows past the counts get exactly zero gradient")
+    rows["branch_matmul_grad"] = (e, t)
+    del x, w, xs, gx, flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def expected_train_launches(cfg):
+    """Kernel launches one train step makes: every kernel of a layer
+    twice (the forward and the remat recompute), Whisper's encoder once
+    (no remat, as in JAX)."""
+    from repro_torch.models.blocks import block_pattern
+    from repro_torch.models.model import _moe_impl_for
+
+    if cfg.is_encoder_decoder:
+        return {"flash_attention": cfg.encoder_layers + 4 * cfg.num_layers,
+                "ssd_scan": 0, "branch_matmul": 0}
+    kinds = block_pattern(cfg)
+    ragged = _moe_impl_for(cfg, False) == "ragged"
+    return {"flash_attention": 2 * sum(m == "attn" for m, _ in kinds),
+            "ssd_scan": 2 * sum(m == "mamba" for m, _ in kinds),
+            "branch_matmul": 6 * sum(c == "moe" for _, c in kinds) * ragged}
+
+
+def train_step_bound(params, tokens):
+    """The least time of one train step: 6 operations per weight-matrix
+    entry and token (forward 2, backward 4; attention scores left out),
+    or the optimizer's bytes, 28 per parameter (master, m and v read and
+    written in fp32, the gradient read and the parameter written in
+    bf16, or their fp32 equivalents), whichever is larger."""
+    named = dict(params.named_parameters())
+    mats = sum(p.numel() for n, p in named.items()
+               if p.ndim >= 2 and not (n == "embed" and "lm_head" in named))
+    n = sum(p.numel() for p in named.values())
+    return bound_of(28 * n, 6 * mats * tokens, torch.bfloat16)
+
+
+def step_one(api, params, batch):
+    """Loss, gradient norm and gradients of one train step's batch."""
+    from repro_torch.training import loss_and_grads
+    from repro_torch.training.optimizer import global_norm
+
+    loss, _, grads = loss_and_grads(api, params, batch)
+    return loss, global_norm(grads), grads
+
+
+def rel(a, b):
+    """|a - b| / |b| of two device scalars."""
+    return abs(a.item() - b.item()) / abs(b.item())
+
+
+def worst_leaf(grads, want):
+    """The largest normwise difference of a leaf's gradient from
+    ``want``'s, over the leaves whose ``want`` is not zero."""
+    return max(normwise(grads[n], g) for n, g in want.items()
+               if torch.count_nonzero(g))
+
+
+def first_step_check(api, params, batch, fa, ss, bm, want, label):
+    """Step 1's loss and gradient norm through the kernels (their launches
+    counted) against the same with the plain versions patched in,
+    relative within TRAIN_TOL and the worst leaf's gradient normwise
+    within LEAF_TOL, and the same step with the planted faults patched
+    in (``faulty_kernels``) outside one of them; a scan path also reads
+    the restart fault (see FAULT_WINDOW).  Returns the kernels' loss."""
+    mods = (fa, ss, bm)
+    for m in mods:
+        m.reset_launches()
+    loss, gnorm, grads = step_one(api, params, batch)
+    torch.cuda.synchronize()
+    launched = kernel_counts(mods)
+    with plain_kernels(fa, ss, bm):
+        ploss, pnorm, pgrads = step_one(api, params, batch)
+    torch.cuda.synchronize()
+    if kernel_counts(mods) != launched:
+        raise AssertionError(f"{label}: a kernel launched with the plain "
+                             f"versions patched in")
+    leaf = worst_leaf(grads, pgrads)
+    del grads
+    with patched_kernels(*faulty_kernels(fa, ss, bm)):
+        floss, fnorm, fgrads = step_one(api, params, batch)
+    fleaf = worst_leaf(fgrads, pgrads)
+    del fgrads
+    restart = ""
+    if want["ssd_scan"]:
+        with patched_kernels(*faulty_kernels(fa, ss, bm, "restart")):
+            rloss, rnorm, rgrads = step_one(api, params, batch)
+        restart = (f"; the scan restarting every chunk: relative "
+                   f"{rel(rloss, ploss):.3e} and {rel(rnorm, pnorm):.3e}, "
+                   f"worst leaf {worst_leaf(rgrads, pgrads):.3e}")
+        del rgrads
+    del pgrads
+    rel_l, rel_g = rel(loss, ploss), rel(gnorm, pnorm)
+    frel_l, frel_g = rel(floss, ploss), rel(fnorm, pnorm)
+    log(f"train {label}: step 1 through the kernels: loss {loss.item():.6f},"
+        f" grad_norm {gnorm.item():.6f}, launches {launched}; plain "
+        f"versions: loss {ploss.item():.6f}, grad_norm {pnorm.item():.6f}; "
+        f"relative {rel_l:.3e} and {rel_g:.3e} (tol {TRAIN_TOL}), worst "
+        f"leaf gradient normwise {leaf:.3e} (tol {LEAF_TOL}); planted "
+        f"faults: relative "
+        f"{frel_l:.3e} and {frel_g:.3e}, worst leaf {fleaf:.3e}{restart}")
+    if launched != want:
+        raise AssertionError(f"{label}: launches {launched}, expected {want}")
+    if not (torch.isfinite(loss) and torch.isfinite(gnorm)):
+        raise AssertionError(f"{label}: step 1 is not finite")
+    if not (rel_l <= TRAIN_TOL and rel_g <= TRAIN_TOL and leaf <= LEAF_TOL):
+        raise AssertionError(f"{label}: step 1 off its plain versions")
+    if not (max(frel_l, frel_g) > TRAIN_TOL or fleaf > LEAF_TOL):
+        raise AssertionError(f"{label}: the check passes the planted "
+                             f"faults")
+    return loss
+
+
+def train_run(label, run, want, mods, first_loss, tokens):
+    """``run(on_step)`` trains TRAIN_STEPS steps; every step must launch
+    ``want`` and give a finite loss and grad_norm, and step 1's loss must
+    equal ``first_loss`` bit for bit.  Logs ms a step, tokens/s and peak
+    memory; returns the launches of the whole run."""
+    steps = []
+    for m in mods:
+        m.reset_launches()
+    before = [kernel_counts(mods)]
+
+    def record(step, params, opt_state, metrics):
+        now = kernel_counts(mods)
+        steps.append((metrics, {k: now[k] - before[0][k] for k in now}))
+        before[0] = now
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run(record)
+    total = kernel_counts(mods)
+    peak = torch.cuda.max_memory_allocated()
+    secs = [m["seconds"] for m, _ in steps[1:]]
+    ms = float(np.median(secs)) * 1e3
+    log(f"train {label}: {len(steps)} steps, losses "
+        f"{[round(m['loss'], 4) for m, _ in steps]}, grad_norms "
+        f"{[round(m['grad_norm'], 4) for m, _ in steps]}; launches a step "
+        f"{steps[0][1]}; {ms:.1f} ms a step (median of steps 2-"
+        f"{len(steps)}, {min(secs) * 1e3:.1f}-{max(secs) * 1e3:.1f}; step 1 "
+        f"{steps[0][0]['seconds'] * 1e3:.1f} ms), {tokens / ms * 1e3:.0f} "
+        f"tokens/s, peak device memory {peak / 2**30:.2f} GiB")
+    if len(steps) != TRAIN_STEPS:
+        raise AssertionError(f"{label}: {len(steps)} steps")
+    for i, (m, launched) in enumerate(steps):
+        if launched != want:
+            raise AssertionError(f"{label}: step {i + 1} launched "
+                                 f"{launched}, expected {want}")
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+            raise AssertionError(f"{label}: step {i + 1} is not finite")
+    if steps[0][0]["loss"] != first_loss:
+        raise AssertionError(f"{label}: step 1's loss {steps[0][0]['loss']}"
+                             f" differs from the checked {first_loss}")
+    log(f"train {label}: step 1's loss bit-identical to the checked step")
+    return total
+
+
+def free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_phase(arch, B_, S_, fa, ss, bm, device):
+    """Phases 24-26: ``arch`` at full width (bf16, random weights from
+    seed 0), ``SyntheticTokens(seed=0)`` batches of B_ x S_ (whisper:
+    ``cfg.encoder_seq`` stub frames beside), AdamW on fp32 masters at
+    lr TRAIN_LR.  Step 1 against the plain versions (first_step_check),
+    a profile of one train step, then ``launch.train.train(...,
+    reduced=False)`` for TRAIN_STEPS steps.  Returns the launches of the
+    ``train`` run."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens, to_device
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model, stub_audio_frontend
+    from repro_torch.training import OptConfig, init_opt_state
+    from repro_torch.training import make_train_step
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    api = build_model(cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = api.init(gen)
+    # train()'s first batch: the stream's first, frames drawn after init
+    batch = to_device(next(SyntheticTokens(cfg.vocab_size, S_, B_, seed=0)),
+                      device)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = stub_audio_frontend(gen, cfg, B_, cfg.encoder_seq)
+    n = sum(p.numel() for p in params.parameters())
+    torch.cuda.synchronize()
+    label = f"{arch} B={B_} S={S_}"
+    log(f"train {label}: full width, {n / 1e9:.3f} B params in {api.dtype}"
+        f", init {time.perf_counter() - t0:.1f} s")
+    want = expected_train_launches(cfg)
+    first = first_step_check(api, params, batch, fa, ss, bm, want, label)
+    opt_cfg = OptConfig(lr=TRAIN_LR, warmup_steps=min(20, TRAIN_STEPS // 5
+                                                      + 1))
+    state = init_opt_state(params, opt_cfg)
+    step = make_train_step(api, opt_cfg)
+    tokens = B_ * S_
+    device_profile(f"{label} train step", lambda: step(params, state, batch),
+                   1, train_step_bound(params, tokens),
+                   tuple((k, m.launches) for k, m in
+                         (("flash_attention", fa), ("ssd_scan", ss),
+                          ("branch_matmul", bm)) if want[k]), grad=True)
+    del api, params, state, step, batch
+    free()
+    total = train_run(
+        label, lambda record: train(arch, steps=TRAIN_STEPS, batch=B_,
+                                    seq=S_, reduced=False, lr=TRAIN_LR,
+                                    log_every=TRAIN_STEPS, device=device,
+                                    on_step=record),
+        want, (fa, ss, bm), first.item(), tokens)
+    free()
+    return total
+
+
+def moe_train_phase(fa, ss, bm, device):
+    """The MoE expert GEMMs in training: the kimi-like config of the
+    tests (``kimi-k2-1t-a32b.reduced()`` with 8 experts, ``layer_offset
+    =1``: a dense layer, then ``moe_ragged`` with the shared expert) in
+    bf16, so the expert GEMMs take the tensor-core path.  No full-width
+    MoE model trains on one card: dbrx-132b cut to one layer is 4.49 B
+    parameters (``ModelConfig.param_count``), 71.9 GB at 16 bytes a
+    parameter (bf16 weight and gradient, fp32 master, m and v) before
+    any activation.  Step 1 against the plain versions, then
+    TRAIN_STEPS steps of ``make_train_step``.  Returns the run's
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens, to_device
+    from repro_torch.models import build_model
+    from repro_torch.training import OptConfig, init_opt_state
+    from repro_torch.training import make_train_step
+
+    cfg = get_config("kimi-k2-1t-a32b").reduced()
+    cfg = dataclasses.replace(cfg, dtype="bfloat16", moe=dataclasses.replace(
+        cfg.moe, num_experts=8, layer_offset=1))
+    api = build_model(cfg, device=device)
+    params = api.init(torch.Generator(device=device).manual_seed(0))
+    B_, S_ = 8, 64
+    data = SyntheticTokens(cfg.vocab_size, S_, B_, seed=0)
+    batches = [to_device(next(data), device) for _ in range(TRAIN_STEPS)]
+    label = f"kimi-like reduced bf16 B={B_} S={S_}"
+    want = expected_train_launches(cfg)
+    first = first_step_check(api, params, batches[0], fa, ss, bm, want,
+                             label)
+    opt_cfg = OptConfig(lr=TRAIN_LR, warmup_steps=2)
+    state = init_opt_state(params, opt_cfg)
+    step = make_train_step(api, opt_cfg)
+
+    def run(record):
+        nonlocal params, state
+        for i, batch in enumerate(batches):
+            t1 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            m = {k: float(v) for k, v in m.items()}
+            m["seconds"] = time.perf_counter() - t1
+            record(i, params, state, m)
+
+    total = train_run(label, run, want, (fa, ss, bm), first.item(), B_ * S_)
+    del api, params, state, step
+    free()
+    return total
+
+
+def learning_phase():
+    """Phase 27: ``examples/torch_train_small.py`` on the card: reduced
+    stablelm-3b, LEARN_STEPS steps, the loss below 0.7x its first value,
+    then its checkpoint restored bit for bit (the example raises
+    otherwise)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_small", os.path.join(HERE, "examples",
+                                          "torch_train_small.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    t0 = time.perf_counter()
+    losses = example.main([str(LEARN_STEPS)])
+    log(f"learn: examples/torch_train_small.py {LEARN_STEPS} steps on the "
+        f"card in {time.perf_counter() - t0:.1f} s: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, checkpoint round trip bit for bit")
+    free()
+
+
+def training_phases(fa, ss, bm, device):
+    """Phases 23-27.  Returns ({row name: (err, timing)}, {row name:
+    launches in its training run}) for the kernels line's gradient
+    rows."""
+    rows = grad_phase(fa, ss, bm, device)
+    runs = {arch: train_phase(arch, B_, S_, fa, ss, bm, device)
+            for arch, B_, S_ in TRAIN_RUNS}
+    runs["moe"] = moe_train_phase(fa, ss, bm, device)
+    from repro_torch.launch.train import main as train_main
+
+    argv = ["--arch", "stablelm-3b", "--full", "--steps", "3"]
+    log(f"cli: python -m repro_torch.launch.train {' '.join(argv)}")
+    losses = train_main(argv)
+    if not all(np.isfinite(losses)):
+        raise AssertionError("the train CLI gave a loss that is not finite")
+    free()
+    learning_phase()
+    launches = {"flash_attention_grad":
+                runs["stablelm-3b"]["flash_attention"],
+                "ssd_scan_grad": runs["mamba2-370m"]["ssd_scan"],
+                "branch_matmul_grad": runs["moe"]["branch_matmul"]}
+    log(f"train: kernel launches in the training runs {runs}")
+    return rows, launches
+
+
 def count_calls(api):
     """Wrap ``api.decode_fn`` with a call counter; returns the counter."""
     calls = [0]
@@ -3576,6 +4202,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     whisper_launches = whisper_phases(da, fa, device, (pa, bm, ss))
+    gc.collect()
+    torch.cuda.empty_cache()
+    grad_rows, grad_launches = training_phases(fa, ss, bm, device)
 
     rows = []
     for name, meta in KERNELS.items():
@@ -3587,6 +4216,14 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                      "bound_by": t["bound"][1],
                      "library_ms": t.get("library_ms")})
+    for name, (e, t) in grad_rows.items():
+        meta = KERNELS[name[:-len("_grad")]]
+        rows.append({"name": name, "route": "cuda", "source": meta["source"],
+                     "replaces": meta["replaces"],
+                     "launches": grad_launches[name], "max_abs_err": e,
+                     "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                     "library_ms": t["library_ms"], "fwd_ms": t["fwd_ms"]})
     print("whisper launches per call: " + json.dumps(whisper_launches))
     print(json.dumps({"kernels": rows}))
     print(card)

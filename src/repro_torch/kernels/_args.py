@@ -1,9 +1,16 @@
-"""Argument checks shared by the kernel wrappers.
+"""Argument checks shared by the kernel wrappers, and their gradients.
 
 Every wrapper runs its plain PyTorch version for CPU tensors and
 otherwise hands raw pointers to a CUDA kernel, which checks nothing
 itself: the device, type, shape and layout of each argument are checked
 here, in Python, before a launch.
+
+A kernel's output carries no autograd graph.  The differentiable
+kernels (``flash_attention``, ``ssd_scan``, ``branch_matmul``) each have
+a ``torch.autograd.Function`` whose forward is the kernel and whose
+backward is :func:`plain_vjp` of the plain version; the wrapper goes
+through it whenever a graph is wanted (:func:`wants_graph`), so no
+caller can drop the graph.
 """
 
 from __future__ import annotations
@@ -79,3 +86,23 @@ def unfilled():
         yield
     finally:
         torch.utils.deterministic.fill_uninitialized_memory = saved
+
+
+def wants_graph(*tensors) -> bool:
+    """Grad mode is on and one of ``tensors`` requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def plain_vjp(plain, inputs, needs, grad_out):
+    """The backward of a kernel's ``autograd.Function``: ``plain(*inputs)``
+    recomputed on detached copies of the saved inputs, under
+    ``torch.enable_grad()``, and ``torch.autograd.grad`` of it for
+    ``grad_out`` with respect to the inputs whose ``needs`` flag is set
+    (None for the others).  No kernel is launched."""
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_(n) for x, n in zip(inputs, needs)]
+        wrt = [x for x, n in zip(xs, needs) if n]
+        grads = iter(torch.autograd.grad(plain(*xs), wrt, grad_out)
+                     if wrt else ())
+    return tuple(next(grads) if n else None for n in needs)

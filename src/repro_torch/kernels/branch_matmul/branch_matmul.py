@@ -21,15 +21,20 @@ host never does.
 
 The wrapper runs :func:`branch_matmul_plain` when the tensors lie on the
 CPU, and otherwise launches the kernel on the current stream or raises:
-there is no fallback.  A launch adds one to :data:`launches`; nothing
-else does.
+there is no fallback.  The kernel computes the forward only (the TPU
+kernel has no backward); the wrapper is differentiable through
+:class:`BranchMatmulFn` (the kernel forward, the plain version's
+gradients with the same counts, so rows past a group's count get zero
+gradient, as ``jax.lax.ragged_dot``'s do), which it goes through when
+grad mode is on and x or w requires grad.  A launch adds
+one to :data:`launches`; nothing else does.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .._args import KERNEL_DTYPES, unfilled
+from .._args import KERNEL_DTYPES, plain_vjp, unfilled, wants_graph
 from .._build import load
 
 MAX_GRID_YZ = 65535            # CUDA's limit on gridDim.y and gridDim.z
@@ -70,7 +75,7 @@ def _check_counts(counts, x):
 def branch_matmul(x, w, counts=None):
     """Grouped GEMM: (G, M, K) x (G, K, N) -> (G, M, N); with ``counts``
     (int32 (G,)), only each group's first ``counts[g]`` rows, the rest
-    zero."""
+    zero.  Differentiable with respect to x and w."""
     if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0] \
             or x.shape[2] != w.shape[1]:
         raise ValueError(f"branch_matmul: x {tuple(x.shape)} vs w "
@@ -78,6 +83,13 @@ def branch_matmul(x, w, counts=None):
                          f"(G, K, N)")
     if counts is not None:
         _check_counts(counts, x)
+    if wants_graph(x, w):
+        return BranchMatmulFn.apply(x, w, counts)
+    return _forward(x, w, counts)
+
+
+def _forward(x, w, counts):
+    """The plain version on the CPU, else the kernel's launch."""
     if x.device.type == "cpu" and w.device.type == "cpu":
         return branch_matmul_plain(x, w, counts)
     if x.device.type != "cuda":
@@ -108,3 +120,23 @@ def branch_matmul(x, w, counts=None):
         raise RuntimeError(f"branch_matmul: launch failed, CUDA error {rc}")
     launches["branch_matmul"] += 1
     return out
+
+
+class BranchMatmulFn(torch.autograd.Function):
+    """:func:`branch_matmul` with a gradient: the forward is the kernel
+    (the plain version on the CPU), the backward recomputes
+    :func:`branch_matmul_plain` with the same ``counts`` on the saved x
+    and w and returns its gradients (no kernel launch)."""
+
+    @staticmethod
+    def forward(ctx, x, w, counts):
+        ctx.save_for_backward(x, w, counts)
+        return _forward(x, w, counts)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, w, counts = ctx.saved_tensors
+        grads = plain_vjp(lambda x, w: branch_matmul_plain(x, w, counts),
+                          (x, w), ctx.needs_input_grad[:2], grad_out)
+        return (*grads, None)
+

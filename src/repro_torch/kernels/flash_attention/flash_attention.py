@@ -2,8 +2,11 @@
 
     q (B, H, S, D) x k, v (B, K, T, D) -> out (B, H, S, D)
 
-Full-sequence self-attention of ``forward_lm`` / ``prefill_fn``, forward
-only (the TPU kernel has no backward either).  Query head ``h`` reads KV
+Full-sequence self-attention of ``forward_lm`` / ``prefill_fn`` and of
+the training losses.  The kernel computes the forward only (the TPU
+kernel has no backward either); the wrapper is differentiable through
+:class:`FlashAttentionFn` (the kernel forward, the plain version's
+gradients).  Query head ``h`` reads KV
 head ``h // (H // K)``; query and key positions both start at 0; key
 ``j`` is valid for query ``i`` iff (not ``causal`` or ``j <= i``) and
 (``window == 0`` or ``j > i - window``).  ``causal=False`` and ``T !=
@@ -23,8 +26,11 @@ and D <= 128.
 
 The wrapper checks its arguments, then runs :func:`flash_attention_plain`
 when the tensors lie on the CPU, and otherwise launches the kernel on
-the current stream or raises: there is no fallback.  A launch adds one
-to :data:`launches`; nothing else does.
+the current stream or raises: there is no fallback.  With grad mode on
+and an input that requires grad it goes through
+:class:`FlashAttentionFn`, so its output always carries the graph a
+caller needs.  A launch adds one to :data:`launches`; nothing else
+does.
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ import ctypes
 import numpy as np
 import torch
 
-from .._args import KERNEL_DTYPES, NEG_INF, unfilled
+from .._args import (KERNEL_DTYPES, NEG_INF, plain_vjp, unfilled,
+                     wants_graph)
 from .._build import load
 
 MAX_HEAD_DIM = 128             # csrc: kMaxD
@@ -77,13 +84,21 @@ def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0):
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     """q (B,H,S,D) x k,v (B,K,T,D) -> (B,H,S,D), each with any strides
-    and unit stride over D; the output keeps q's memory layout."""
+    and unit stride over D; the output keeps q's memory layout.
+    Differentiable with respect to q, k and v."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape \
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
             or q.shape[1] % k.shape[1]:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} vs k "
                          f"{tuple(k.shape)} / v {tuple(v.shape)}; expected "
                          f"(B, H, S, D) and (B, K, T, D) with K | H")
+    if wants_graph(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window)
+
+
+def _forward(q, k, v, causal, window):
+    """The plain version on the CPU, else the kernel's launch."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window)
     if q.device.type != "cuda":
@@ -123,6 +138,27 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
                            f"{rc}")
     launches["flash_attention"] += 1
     return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` with a gradient: the forward is the kernel
+    (the plain version on the CPU), the backward recomputes
+    :func:`flash_attention_plain` on the saved q, k, v and returns its
+    gradients (no kernel launch)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window)
+        return _forward(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        causal, window = ctx.mask
+        grads = plain_vjp(
+            lambda q, k, v: flash_attention_plain(q, k, v, causal, window),
+            ctx.saved_tensors, ctx.needs_input_grad[:3], grad_out)
+        return (*grads, None, None)
 
 
 def attend_bshd(q, k, v, causal: bool = True, window: int = 0):

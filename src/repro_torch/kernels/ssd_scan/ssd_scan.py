@@ -33,8 +33,12 @@ fill (the kernels write every element they read).
 The wrapper checks its arguments, then runs :func:`ssd_scan_plain` (the
 chunked algorithm of :mod:`.ref`) when the tensors lie on the CPU, and
 otherwise launches the kernels on the current stream or raises: there
-is no fallback.  The kernel computes in fp32 and takes fp32 only, as the
-model path calls it.  A wrapper call that launches adds one to
+is no fallback.  The kernels compute the forward only (the TPU kernel
+has no backward); the wrapper is differentiable through
+:class:`SSDScanFn` (the kernels forward, the plain version's gradients),
+which it goes through when grad mode is on and an operand requires
+grad.  The kernel computes in fp32 and takes fp32 only, as the model
+path calls it.  A wrapper call that launches adds one to
 :data:`launches`, however many device kernels it runs; nothing else
 does.
 """
@@ -45,7 +49,7 @@ import ctypes
 
 import torch
 
-from .._args import aligned16, unfilled
+from .._args import aligned16, plain_vjp, unfilled, wants_graph
 from .._build import load
 from .ref import ssd_chunked
 
@@ -96,8 +100,15 @@ def ssd_scan(x, dt, A, B, C, chunk: int):
 
     On the card every operand is fp32; x, B and C need unit stride over
     their last axis (any other strides), A is contiguous, and y comes
-    back contiguous."""
+    back contiguous.  Differentiable with respect to every operand."""
     _check(x, dt, A, B, C, chunk)
+    if wants_graph(x, dt, A, B, C):
+        return SSDScanFn.apply(x, dt, A, B, C, chunk)
+    return _forward(x, dt, A, B, C, chunk)
+
+
+def _forward(x, dt, A, B, C, chunk):
+    """The plain version on the CPU, else the kernels' launch."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, chunk)
     if x.device.type != "cuda":
@@ -139,3 +150,25 @@ def ssd_scan(x, dt, A, B, C, chunk: int):
         raise RuntimeError(f"ssd_scan: launch failed, CUDA error {rc}")
     launches["ssd_scan"] += 1
     return y
+
+
+class SSDScanFn(torch.autograd.Function):
+    """:func:`ssd_scan` with a gradient: the forward is the kernels (the
+    plain version on the CPU), the backward recomputes :func:`ssd_scan_plain`
+    on the saved operands and returns its gradients (no kernel
+    launch)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return _forward(x, dt, A, B, C, chunk)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        chunk = ctx.chunk
+        grads = plain_vjp(
+            lambda *ops: ssd_scan_plain(*ops, chunk), ctx.saved_tensors,
+            ctx.needs_input_grad[:5], grad_y)
+        return (*grads, None)
+

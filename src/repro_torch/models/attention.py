@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.kernels._args import wants_graph
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import attend_bshd
 from repro_torch.kernels.paged_attention import (paged_append,
@@ -152,14 +153,15 @@ def cross_attention(params: Attention, cfg, x, k, v, pos=None, lens=None):
     with every slot valid: ``pos`` = arange(T) int32 and ``lens`` = T - 1
     for every row (both kept in the caches by ``encdec.prefill_encdec``;
     built here when not given).  S > 1 goes through ``flash_attention``
-    with ``causal=False``."""
+    with ``causal=False``, as does S = 1 when a gradient is wanted
+    (``decode_attention`` has none)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim()
     q = x @ params.wq
     if params.bq is not None:
         q = q + params.bq
     q = q.reshape(B, S, cfg.num_heads, hd)
-    if S > 1:
+    if S > 1 or wants_graph(q, k, v):
         ctx = attend_bshd(q, k, v, causal=False)
     else:
         T = k.shape[1]

@@ -1,4 +1,4 @@
-"""Shared model primitives: norms, activations, RoPE, initialisers.
+"""Shared model primitives: norms, activations, RoPE, initialisers, remat.
 
 Port of ``repro.models.common``.  Parameters live in ``nn.Module``s
 (see :mod:`.blocks`, :mod:`.transformer`); every function here is
@@ -13,11 +13,23 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """Inference-only parameter (serving never takes gradients)."""
+    """A parameter stored as given (the model dtype, or fp32), with
+    gradients off: serving takes none, and the trainer
+    (``repro_torch.training.make_train_step``) turns them on."""
     return nn.Parameter(t, requires_grad=False)
+
+
+def remat(fn, *args):
+    """``fn(*args)``, rematerialised while gradients are on (JAX's
+    ``jax.checkpoint``): its activations are recomputed in the backward
+    pass, which runs ``fn``'s kernels a second time."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # --------------------------------------------------------------------------

@@ -1,12 +1,13 @@
-"""Whisper-style encoder-decoder (arXiv:2212.04356), the serving side.
+"""Whisper-style encoder-decoder (arXiv:2212.04356): training and serving.
 
 Port of ``repro.models.encdec``.  The audio frontend (mel spectrogram +
 2x conv subsampling) is a stub, as in the JAX package: ``frames`` are
 precomputed frame embeddings (B, S_enc, d).  Downstream of it: sinusoidal
 positions, the bidirectional encoder (``flash_attention`` with
-``causal=False``), the causal decoder with cross-attention (one token a
-step through ``decode_attention``, self and cross) and the tied vocab
-head.
+``causal=False``), the causal decoder with cross-attention (in serving
+one token a step through ``decode_attention``, self and cross; in
+training every token at once through ``flash_attention``) and the tied
+vocab head.
 
 Parameters (:class:`EncDec`)::
 
@@ -17,8 +18,9 @@ Parameters (:class:`EncDec`)::
 The JAX package scans stacked layers; here they are ``nn.ModuleList``s
 walked in Python.  As in JAX, the decoder's self-attention applies RoPE
 on top of the learned ``dec_pos`` (``qkv_project`` does), and the
-encoder applies none.  ``decode_train`` and ``encdec_loss`` belong to
-the training slice.
+encoder applies none; the teacher-forced training decoder
+(:func:`decode_train`) applies none either, as JAX's does.
+:func:`encdec_loss` is the training loss.
 """
 
 from __future__ import annotations
@@ -32,8 +34,10 @@ from repro_torch.kernels.flash_attention import attend_bshd
 
 from .attention import (Attention, cross_attention, decode_step_attention,
                         init_kv_cache, qkv_project)
-from .common import Norm, embed_init, norm, param, sinusoidal_positions
+from .common import (Norm, embed_init, norm, param, remat,
+                     sinusoidal_positions)
 from .mlp import MLP, mlp
+from .vocab import cross_entropy
 
 #: rows of the learned decoder position table (JAX: ``dec_pos``)
 DEC_POS_ROWS = 4096
@@ -120,15 +124,40 @@ def cross_kv(p: Attention, cfg, enc_out):
             (enc_out @ p.wv).reshape(B, T, K, hd))
 
 
-def decode_train(params, cfg, tokens, enc_out):
-    raise NotImplementedError(
-        "the teacher-forced decoder forward arrives with the training "
-        "slice")
+def _decoder_layer(blk: DecBlock, cfg, x, enc_out):
+    """One teacher-forced decoder layer over x (B, S, d): causal
+    self-attention with no RoPE (JAX's ``decode_train`` passes no
+    positions), cross-attention over the layer's K/V of ``enc_out``
+    (both through ``flash_attention``), the MLP."""
+    B, S, _ = x.shape
+    p = blk.self_attn
+    q, k, v = qkv_project(p, cfg, norm(blk.norm1, x))
+    x = x + attend_bshd(q, k, v, causal=True).reshape(B, S, -1) @ p.wo
+    ck, cv = cross_kv(blk.cross_attn, cfg, enc_out)
+    x = x + cross_attention(blk.cross_attn, cfg, norm(blk.norm_x, x), ck, cv)
+    return x + mlp(blk.mlp, norm(blk.norm2, x))
 
 
-def encdec_loss(params, cfg, frames, tokens, labels):
-    raise NotImplementedError(
-        "the encoder-decoder loss arrives with the training slice")
+def decode_train(params: EncDec, cfg, tokens, enc_out):
+    """Teacher-forced decoder forward, tokens (B, S) -> hidden (B, S, d),
+    each layer rematerialised while gradients are on (JAX's
+    ``jax.checkpoint`` of its scan body): two ``flash_attention``
+    launches a layer, and two more in its recompute."""
+    S = tokens.shape[1]
+    x = params.embed[tokens] + params.dec_pos[:S][None]
+    for blk in params.decoder:
+        x = remat(_decoder_layer, blk, cfg, x, enc_out)
+    return norm(params.dec_final, x)
+
+
+def encdec_loss(params: EncDec, cfg, frames, tokens, labels):
+    """Mean cross-entropy of the tied vocab head over the decoder's
+    hidden states (labels = -1 masked).  The encoder is not
+    rematerialised, as in JAX.  Returns (loss, {"ce": loss})."""
+    enc = encode(params, cfg, frames)
+    hidden = decode_train(params, cfg, tokens, enc)
+    loss = cross_entropy(hidden @ params.embed.t(), labels)
+    return loss, {"ce": loss}
 
 
 # --------------------------------------------------------------------------

@@ -1,9 +1,10 @@
-"""Model registry: ModelConfig -> uniform serving API.
+"""Model registry: ModelConfig -> uniform training and serving API.
 
 Port of ``repro.models.model``::
 
     api = build_model(cfg, device="cuda")
     params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    loss, metrics = api.loss_fn(params, batch)                # train
     logits = api.prefill_fn(params, {"tokens": tokens})        # (B, V)
     caches = api.init_caches(batch, max_len)                  # dense
     caches = api.init_paged_caches(batch, num_blocks, block_size)
@@ -24,7 +25,10 @@ hybrids of the two mixers.  It serves the encoder-decoder family
 :func:`stub_audio_frontend`), dense caches only (``init_paged_caches``
 is None).  Weights are stored in ``cfg.dtype`` (or ``dtype``); norm
 parameters, the MoE router and the SSM's ``A_log``, ``D`` and
-``dt_bias`` stay fp32.  ``loss_fn`` arrives with the training slice.
+``dt_bias`` stay fp32.  ``loss_fn`` takes ``{"tokens", "labels"}``
+(and ``"frames"`` for whisper) and returns ``(loss, {"ce", "aux"})`` (no
+``"aux"`` for whisper), differentiable with respect to the params once
+their gradients are on (see :mod:`repro_torch.training`).
 """
 
 from __future__ import annotations
@@ -68,10 +72,6 @@ def _check_generator(gen, device):
         raise ValueError(f"generator on {gen.device}, model on {device}")
 
 
-def _loss_fn(params, batch):
-    raise NotImplementedError("loss_fn arrives with the training slice")
-
-
 def build_model(cfg, device=None, dtype=None) -> ModelAPI:
     device = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
@@ -82,6 +82,13 @@ def build_model(cfg, device=None, dtype=None) -> ModelAPI:
     def init(gen):
         _check_generator(gen, device)
         return transformer.init_lm(gen, cfg, device, dtype)
+
+    def loss_fn(params, batch):
+        return transformer.lm_loss(
+            params, cfg, torch.as_tensor(batch["tokens"], device=device),
+            torch.as_tensor(batch["labels"], device=device),
+            batch.get("frontend_embeds"), batch.get("positions3"),
+            moe_impl=moe_impl)
 
     def prefill_fn(params, batch):
         return transformer.prefill_lm(
@@ -106,7 +113,7 @@ def build_model(cfg, device=None, dtype=None) -> ModelAPI:
             cfg, batch, num_blocks, block_size,
             torch_dtype(cache_dtype or dtype), device)
 
-    return ModelAPI(cfg, device, dtype, init, _loss_fn, prefill_fn,
+    return ModelAPI(cfg, device, dtype, init, loss_fn, prefill_fn,
                     decode_fn, init_caches, init_paged_caches)
 
 
@@ -127,6 +134,12 @@ def _build_encdec(cfg, device, dtype) -> ModelAPI:
     def init(gen):
         _check_generator(gen, device)
         return encdec.init_encdec(gen, cfg, device, dtype)
+
+    def loss_fn(params, batch):
+        return encdec.encdec_loss(
+            params, cfg, torch.as_tensor(batch["frames"], device=device),
+            torch.as_tensor(batch["tokens"], device=device),
+            torch.as_tensor(batch["labels"], device=device))
 
     def prefill_fn(params, batch):
         frames = torch.as_tensor(batch["frames"], device=device)
@@ -150,7 +163,7 @@ def _build_encdec(cfg, device, dtype) -> ModelAPI:
             cfg, batch, max_len, torch_dtype(cache_dtype or dtype), device,
             tile)
 
-    return ModelAPI(cfg, device, dtype, init, _loss_fn, prefill_fn,
+    return ModelAPI(cfg, device, dtype, init, loss_fn, prefill_fn,
                     decode_fn, init_caches)
 
 

@@ -155,7 +155,8 @@ def expert_ffn(params: MoE, xb, counts=None):
     """Grouped SwiGLU over expert buckets: xb (E, cap, d) -> (E, cap, d),
     three ``branch_matmul`` launches (weights cast to xb's dtype).  With
     ``counts`` (int32 (E,), at most cap), each expert's first counts[e]
-    rows only; the rows past them come out zero."""
+    rows only; the rows past them come out zero, and get zero
+    gradient."""
     dt = xb.dtype
     g = branch_matmul(xb, params.w_gate.to(dt), counts)
     u = branch_matmul(xb, params.w_up.to(dt), counts)

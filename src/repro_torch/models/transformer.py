@@ -3,10 +3,11 @@ single-token decode.
 
 Port of ``repro.models.transformer``.  The JAX package scans a stacked
 "period" of layers to keep XLA's compile time flat; here the layers are a
-flat ``nn.ModuleList`` and every pass is a Python loop over them.  The
-JAX forward also rematerialises each period for training (``remat``);
-serving takes no gradients, so the port's forward has no remat: it
-arrives with the training slice, as does the loss.
+flat ``nn.ModuleList`` and every pass is a Python loop over them.  While
+gradients are on, :func:`forward_lm` rematerialises each layer
+(``common.remat``, where JAX checkpoints each scanned period): its
+activations are recomputed in the backward pass, which launches each
+layer's kernels a second time.  :func:`lm_loss` is the training loss.
 
 Parameters (:class:`LM`):
     embed (V, d)    final_norm    [lm_head (d, V) unless tied]
@@ -21,8 +22,8 @@ from torch import nn
 from .blocks import (apply_block, block_pattern, decode_block, init_block,
                      init_block_cache, init_paged_block_cache,
                      split_pattern)
-from .common import Norm, embed_init, norm, param
-from .vocab import logits_last_token
+from .common import Norm, embed_init, norm, param, remat
+from .vocab import cross_entropy, lm_logits, logits_last_token
 
 
 def structure(cfg):
@@ -64,14 +65,15 @@ def embed_tokens(params: LM, cfg, tokens, frontend_embeds=None):
 
 def forward_lm(params: LM, cfg, tokens, frontend_embeds=None,
                positions3=None, window=None, moe_impl="ragged"):
-    """Prefill forward.  Returns (hidden (B, S, d), aux_loss).
+    """Training / prefill forward.  Returns (hidden (B, S, d), aux_loss).
 
     Every attention layer runs the ``flash_attention`` kernel, every
     Mamba layer the ``ssd_scan`` kernel and every MoE layer, under
     ``moe_impl="ragged"``, three ``branch_matmul`` launches (their plain
     versions on CPU tensors; a Mamba layer needs S to be a multiple of
     its chunk).  The aux loss is the sum of the MoE layers' load-balance
-    losses (0.0 without MoE layers), as in JAX."""
+    losses (0.0 without MoE layers), as in JAX.  Every layer is
+    rematerialised while gradients are on."""
     if positions3 is not None:
         raise NotImplementedError(
             "3-stream (M-RoPE) positions arrive with the Qwen2-VL slice")
@@ -79,9 +81,21 @@ def forward_lm(params: LM, cfg, tokens, frontend_embeds=None,
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux_total = 0.0
     for layer in params.layers:
-        x, aux = apply_block(layer, cfg, x, positions, window, moe_impl)
+        x, aux = remat(apply_block, layer, cfg, x, positions, window,
+                       moe_impl)
         aux_total = aux_total + aux
     return norm(params.final_norm, x), aux_total
+
+
+def lm_loss(params: LM, cfg, tokens, labels, frontend_embeds=None,
+            positions3=None, moe_impl="ragged"):
+    """Mean cross-entropy (+ MoE aux), with remat.  labels = -1 entries
+    are masked.  Returns (loss + aux, {"ce": loss, "aux": aux})."""
+    hidden, aux = forward_lm(params, cfg, tokens, frontend_embeds,
+                             positions3, moe_impl=moe_impl)
+    loss = cross_entropy(lm_logits(params, cfg, hidden), labels)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+    return loss + aux, {"ce": loss, "aux": aux}
 
 
 def prefill_lm(params: LM, cfg, tokens, frontend_embeds=None,

@@ -139,7 +139,9 @@ def test_flops_cfg_scales_metadata_not_topology():
 
 def test_later_slices_raise():
     # the Whisper encoder graph has landed (the parametrised cases above
-    # hold it to JAX's); its training half waits for the training slice
+    # hold it to JAX's), and so has its training half (tests/
+    # test_torch_training.py holds the loss and its gradient to JAX's):
+    # api.loss_fn is encdec_loss over decode_train's hidden states
     from repro_torch.models import build_model, encdec
 
     cfg = get_config("whisper-tiny").reduced()
@@ -147,11 +149,17 @@ def test_later_slices_raise():
     model = api.init(torch.Generator().manual_seed(0))
     g, _ = export_graph(cfg, model, 1, 16)
     assert g.outputs and "enc_final" in [n.name for n in g.nodes.values()]
-    for fn in (lambda: api.loss_fn(model, {}),
-               lambda: encdec.encdec_loss(model, cfg, None, None, None),
-               lambda: encdec.decode_train(model, cfg, None, None)):
-        with pytest.raises(NotImplementedError, match="training slice"):
-            fn()
+    frames = torch.zeros(1, cfg.encoder_seq, cfg.d_model)
+    toks = torch.zeros(1, 4, dtype=torch.int32)
+    with torch.no_grad():
+        loss, metrics = api.loss_fn(
+            model, {"frames": frames, "tokens": toks, "labels": toks})
+        hidden = encdec.decode_train(model, cfg, toks,
+                                     encdec.encode(model, cfg, frames))
+        assert torch.equal(loss, encdec.encdec_loss(model, cfg, frames, toks,
+                                                    toks)[0])
+    assert torch.isfinite(loss) and metrics == {"ce": loss}
+    assert hidden.shape == (1, 4, cfg.d_model)
     # MoE blocks have landed (tests/test_torch_moe.py holds them to JAX):
     # node by node equal to the JAX exporter's on a reduced MoE config
     jax = pytest.importorskip("jax")

@@ -1,10 +1,13 @@
 """The port stands alone: no JAX, no ``repro``, no silent CPU fallback.
 
-* An AST scan of ``src/repro_torch/`` and ``tests/torch_graph_zoo.py``
-  finds no import of ``jax`` or of the JAX package ``repro``.
+* An AST scan of ``src/repro_torch/`` (the training side among it:
+  ``training/``, ``data/``, ``launch/train.py``) and
+  ``tests/torch_graph_zoo.py`` finds no import of ``jax`` or of the JAX
+  package ``repro``.
 * A subprocess imports every module of ``repro_torch``, and the torch
   graph zoo, with ``jax`` and ``repro`` blocked in ``sys.modules``.
-* ``build_model``, ``ContinuousEngine`` (paged or dense),
+* ``build_model``, the trainer (``launch.train``), ``ContinuousEngine``
+  (paged or dense),
   ``ServingEngine``, ``PlanExecutor`` (every mode, ``parallax-hetero``
   too), ``HeteroExecutor`` and ``ArenaExecutor`` run on
   ``cuda`` by default and raise without a card unless ``device="cpu"``
@@ -43,6 +46,10 @@ def _imported_modules(path: pathlib.Path):
 def test_no_jax_or_repro_import_in_the_port():
     files = sorted(PKG.rglob("*.py")) + [ZOO]
     assert len(files) > 40
+    scanned = {f.relative_to(PKG).as_posix() for f in files[:-1]}
+    assert {"training/optimizer.py", "training/train_step.py",
+            "training/checkpoint.py", "data/pipeline.py",
+            "launch/train.py"} <= scanned
     bad = [(f.name, m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -109,6 +116,18 @@ def test_entry_points_raise_without_a_card(no_card):
         main(["--requests", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--requests", "1", "--engine", "round"])
+
+
+def test_trainer_raises_without_a_card(no_card, capsys):
+    from repro_torch.launch.train import main, train
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train("stablelm-3b", steps=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--arch", "stablelm-3b", "--steps", "1"])
+    losses = main(["--arch", "stablelm-3b", "--steps", "2", "--batch", "2",
+                   "--seq", "8", "--device", "cpu"])
+    assert len(losses) == 2 and "on cpu" in capsys.readouterr().out
 
 
 def test_planner_entry_points_raise_without_a_card(no_card):

@@ -115,8 +115,9 @@ def test_dense_and_scalar_paths_wait_for_their_slice(models):
     """The dense and scalar paths have landed (tests/
     test_torch_dense_serving.py), Mamba blocks (tests/
     test_torch_mamba.py) and MoE blocks (tests/test_torch_moe.py); what
-    still waits: a paged cache takes no scalar cache_len (JAX's error),
-    the loss waits for the training slice.  dbrx builds attention + MoE
+    still holds: a paged cache takes no scalar cache_len (JAX's error).
+    The loss has landed (tests/test_torch_training.py holds it to JAX's):
+    finite on a tokens/labels batch.  dbrx builds attention + MoE
     blocks with an fp32 router; mamba2 builds Mamba2 mixers with no
     channel mix, and per-row state (not a block pool) in its paged
     caches."""
@@ -126,8 +127,10 @@ def test_dense_and_scalar_paths_wait_for_their_slice(models):
              "cache_len": torch.tensor(0, dtype=torch.int32)}
     with pytest.raises(ValueError, match="paged caches require"):
         tapi.decode_fn(tparams, caches, batch)
-    with pytest.raises(NotImplementedError, match="training"):
-        tapi.loss_fn(tparams, batch)
+    with torch.no_grad():
+        loss, metrics = tapi.loss_fn(tparams, {"tokens": batch["tokens"],
+                                               "labels": batch["tokens"]})
+    assert torch.isfinite(loss) and set(metrics) == {"ce", "aux"}
     # MoE blocks have landed (tests/test_torch_moe.py holds them to JAX)
     dbrx = build_model(get_config("dbrx-132b").reduced(), device="cpu") \
         .init(None)

@@ -39,8 +39,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    fp32, the h2o-danube window case (B=1, S=6144), a non-causal T > S
    case, a GQA 32/8 case at S = T = 1000 (off the 64-row tile) and rows
    with no valid key (S=32, T=8, window 4, causal or not, bf16 and fp32:
-   the mean of V over all T keys), each launched twice and bit-identical —
-   times beside their bounds and one ``scaled_dot_product_attention`` call
+   the mean of V over all T keys), each launched twice and bit-identical
+   — every bf16 attention case also normwise within 5e-3 of its plain
+   version evaluated in fp32 on the same bf16 inputs — times beside
+   their bounds and one ``scaled_dot_product_attention`` call
    each; ``ssd_scan`` (fp32) against its plain version and the sequential
    recurrence at rtol = atol = 2e-4 at the prefill shape (b=2, H=32,
    S=2048, chunk 256, P=64, N=128), a long prompt (b=1, S=8192), an odd
@@ -59,13 +61,14 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 5. identity: the same workload at megastep 1 and with sharing off must
    give bit-identical greedy streams; then the dense-cache path: the
    same workload through ``ContinuousEngine(paged=False)`` at megastep 8
-   and 1 (streams bit-identical to the paged run) and through the round
-   engine ``ServingEngine`` (streams compared; a divergence is printed
-   with the logits at its first step), each run with its launch counts
+   and 1 and through the round engine ``ServingEngine`` (streams
+   bit-identical to the paged run; a divergence is printed with the
+   logits at its first step before the phase fails), each run with its
+   launch counts
    zeroed just before and read just after: 32 ``decode_attention``
    launches per ``decode_fn`` call, none of the paged kernels; then
    ``prefill_fn`` on B=2, S=2048: 32 ``flash_attention`` launches per
-   call, logits within a normwise 2e-2 of the same call with the plain
+   call and no decode kernel, logits within a normwise 2e-2 of the same call with the plain
    attention patched in (2e-4 in an fp32 model with the same weights),
    and on a 128-token prompt its argmax against the first token of
    ``Stepper.prefill_chunk`` on the dense cache (and, in fp32, its
@@ -91,7 +94,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    elementwise differences above 2e-5 between any two summation orders
    (normwise ~1e-5; an ordering or mapping fault would give ~1);
 9. planner B, the model DAG: ``export_decoder_graph`` of stablelm-3b at
-   full width, depth cut to 16 of its 32 layers (the Mamba2 phases took
+   full width, depth cut to 8 of its 32 layers (the later phases took
    the time; fp32 weights from ``torch.Generator`` seed 0), batch 1, seq
    256, through the planner and every mode; every mode's logits and the
    ``ArenaExecutor``'s bit-identical to ``reference`` (their distance to
@@ -103,8 +106,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     the plain scan patched in — at 2e-4 in an fp32 model with the same
     weights, and in bf16 at 4e-2 (this bf16 model moves its logits
     more than 2e-2 between two fp32 orders of the same scan: the plain
-    version at chunk 128 against 256 is printed beside, and so are
-    deliberately perturbed scans), the cross-checks of phase 5 on a
+    version at chunk 128 against 256 must land inside it, and two
+    deliberately perturbed scans outside), the cross-checks of phase 5 on a
     256-token prompt, the scan at layer 0's own inputs against the
     float64 recurrence, and profiles of one decode step and one prefill
     call (device kernels per ``ssd_scan`` call);
@@ -268,11 +271,50 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     forward), launches in the stablelm-3b, mamba2-370m and MoE training
     runs.
 
+28.-33. qwen2-vl-2b at full width (28 layers, d_model 1536, GQA 12/2
+    heads of 128, M-RoPE sections (16, 24, 24), bf16, random weights from
+    ``torch.Generator`` seed 0; after 22, before 23): 28. the attention
+    kernels at its shapes through phase 3's cases: ``flash_attention`` at
+    B=2, S=T=2048, causal, the decode kernels at B=8 over 160 slots (a
+    dense cache and a block pool of the same K/V) and ``paged_append``
+    (C=1), in bf16 and fp32, each against its plain version (bf16 also
+    normwise within 5e-3 of the plain version in fp32), launched twice
+    bit-identical, the decode kernels bit for bit against each other and
+    a row alone, bf16 timed beside the bound and SDPA (``enable_gqa``);
+    29. phase 5's prefill checks on B=2 rows of 1024 stub vision patches
+    (``stub_vision_frontend``) and 1024 text tokens with 3-stream
+    positions: 28 ``flash_attention`` launches a call and no other kernel,
+    logits within a normwise 2e-2 of the plain version patched in (2e-4
+    in an fp32 model with the same weights), two planted faults outside
+    2e-2 (the M-RoPE sections reversed to (24, 24, 16); query head h on
+    KV head h % K), a text-only 128-token prompt (``positions3`` =
+    arange on every stream) against scalar token-by-token decode (fp32
+    2e-4, bf16 5e-2) and ``Stepper.prefill_chunk``, a profile of the
+    call; 30. phases 4-5b's serving checks: 28 ``paged_append`` and 28
+    ``paged_decode_attention`` launches a ``decode_fn`` call, streams
+    bit-identical at megastep 1, sharing off, on the dense cache (N=8 and
+    1; 28 ``decode_attention`` a call) and through the round engine; one
+    call with explicit ``positions3`` equal to ``cache_len`` bit-identical
+    to the call without, paged and dense; profiles of a decode step on
+    the dense cache and the paged pool; 31. training:
+    ``make_train_step`` at B=4 of 1024 vision + 1024 text positions
+    (labels for the text), step 1 against the plain versions with the
+    planted faults caught, 56 ``flash_attention`` launches a step, 3
+    steps with peak memory, a profiled step; 32.-33. the DAG
+    (``export_graph``, fp32, all 28 layers, batch 1, seq 256: JAX's graph
+    has plain RoPE, no QKV bias and no frontend) through every planner
+    mode and ``ArenaExecutor`` bit-identical to ``reference``, then hetero
+    G: ``parallax-hetero`` under ``MOBILE_CONFIG`` and ``H100_CONFIG``
+    within a normwise 1e-4 of ``reference``, argmax equal.  Qwen2-VL's
+    launch counts print on a line of their own before the ``kernels``
+    line.
+
 dbrx-132b and kimi-k2 are never resident together, nor beside another
 full-width model: each is freed before the next is built.
 
-The last two lines are the ``kernels`` JSON object and the result
-object ``{"ok": true, "device": {...}}``.  Without a card, or without
+The last three lines are the ``kernels`` JSON object, the card's name
+and power limit, and the result object ``{"ok": true, "device":
+{...}}``.  Without a card, or without
 the repository beside it, the script fails before printing a result.
 """
 
@@ -295,6 +337,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# bf16 attention kernels against the plain version evaluated in fp32 on
+# the same bf16 inputs: the output's own rounding reads about 2e-3; keys
+# of a partial tile that leaked in with weight exp(0) would shrink
+# Whisper's 1500-key encoder rows by ~1.5 % and read ~1.5e-2
+BF16_NORMWISE = 5e-3
 B, H, D, BS = 8, 32, 80, 16        # the full-width main path's shapes
 PROMPT_MIN, PROMPT_MAX, MAX_NEW, PREFIX = 16, 128, 32, 32
 MAX_CONTEXT = PROMPT_MAX + MAX_NEW
@@ -305,7 +352,7 @@ BM_SITES = {"qkv": (6, 512, 2560, 240), "out": (6, 512, 80, 2560)}
 BM_COUNTS = (512, 300, 0, 17, 511, 256)     # per-group rows at the sites
 PLANNER_GRAPH = dict(dim=2560, heads=32, seq=512)
 DAG_BATCH, DAG_SEQ = 1, 256
-DAG_LAYERS = 16                    # planner B's stablelm-3b depth (of 32)
+DAG_LAYERS = 8                     # planner B's stablelm-3b depth (of 32)
 RUNS_A, RUNS_B = 15, 3             # timed runs per planner mode
 MODES = {                          # PlanExecutor keyword arguments
     "reference": dict(mode="reference"),
@@ -326,6 +373,9 @@ FA_CROSS = dict(B=2, S=448, T=1500)            # causal=False, T > S
 FA_OFF_TILE = dict(S=1000, K=8)    # S = T off the 64-row tile, GQA 32/8
 FA_EMPTY = dict(S=32, T=8, window=4)           # rows 11.. have no valid key
 PREFILL_B, PREFILL_S, PREFILL_RUNS = 2, 2048, 5
+# where attend_bshd looks the kernel up: the module to patch its plain
+# version into
+FLASH_MODULE = "repro_torch.kernels.flash_attention.flash_attention"
 XCHECK_PROMPT = 128                # prefill_fn vs the stepper's prefill
 # prefill logits vs other paths: normwise (||a - b|| / ||b||), bf16 model
 PREFILL_TOL = 2e-2                 # kernel vs plain version, bf16 model
@@ -382,11 +432,11 @@ WHISPER_NEW = 32                   # greedy tokens an utterance
 WHISPER_SOT = 50258                # <|startoftranscript|>
 WHISPER_REF_STEPS = 4
 WHISPER_NORMWISE = 1e-5            # hetero F: CPU against card fp32 sums
-# bf16 kernels at the Whisper shapes against the plain version evaluated
-# in fp32 on the same bf16 inputs: the output's own rounding reads about
-# 2e-3; keys of a partial tile that leaked in with weight exp(0) would
-# shrink the 1500-key encoder rows by ~1.5 % and read ~1.5e-2
-WHISPER_BF16_NORMWISE = 5e-3
+
+# the Qwen2-VL phases (slice 9): qwen2-vl-2b's widths, 28 layers
+QWEN = dict(H=12, K=2, D=128)      # GQA 12/2 heads of 128
+QWEN_TRAIN_B, QWEN_TRAIN_STEPS = 4, 3
+QWEN_DAG_SEQ = 256
 
 # the training phases (slice 8)
 GRAD_FLASH = (                     # label, B, H, K, S, T, D, causal
@@ -407,7 +457,7 @@ TRAIN_STEPS, TRAIN_LR = 5, 3e-3
 # versions, relative: ~10x the largest reading of the first chip run
 # (H100 80GB HBM3, 700 W: loss 7.6e-5, grad_norm 1.8e-4)
 TRAIN_TOL = 2e-3
-GRAD_BF16_NORMWISE = WHISPER_BF16_NORMWISE  # a bf16 Function's output
+GRAD_BF16_NORMWISE = BF16_NORMWISE  # a bf16 Function's output
 GRAD_FP32_NORMWISE = 2e-5                   # the fp32 scan's
 # step 1's worst leaf gradient, normwise against the plain versions':
 # sound runs read 2.2e-2 to 1.2e-1, the planted faults 0.82 to 1.7
@@ -566,20 +616,19 @@ def paged_identities(pa, q, kp, vp, tables, lens, window, rng):
                   got[b])
 
 
-def append_case(rng, dtype, device, C=1):
+def append_case(rng, dtype, device, C=1, K=H, D_=D):
     """The decode step's append (C = 1, row 3 idle) or a chunked one
     (C > 1): ragged ``n_valid`` with row 3 writing nothing and row 5 a
     full chunk, several rows sending their tails to the scratch row."""
     nb = B * BPR
-    K = H
-    pool = (nb + 1, BS, K, D)
+    pool = (nb + 1, BS, K, D_)
     k_pool = torch.tensor(rng.standard_normal(pool), dtype=dtype,
                           device=device)
     v_pool = torch.tensor(rng.standard_normal(pool), dtype=dtype,
                           device=device)
-    k_new = torch.tensor(rng.standard_normal((B, C, K, D)), dtype=dtype,
+    k_new = torch.tensor(rng.standard_normal((B, C, K, D_)), dtype=dtype,
                          device=device)
-    v_new = torch.tensor(rng.standard_normal((B, C, K, D)), dtype=dtype,
+    v_new = torch.tensor(rng.standard_normal((B, C, K, D_)), dtype=dtype,
                          device=device)
     tables = torch.tensor(rng.permutation(nb).reshape(B, BPR)
                           .astype(np.int32), device=device)
@@ -780,6 +829,21 @@ def check(name, label, got, want, dtype):
     return e
 
 
+def bf16_vs_fp32(name, label, got, plain, *args):
+    """A bf16 result against ``plain`` in fp32 on the same bf16 values:
+    normwise within ``BF16_NORMWISE`` (nothing to check in fp32)."""
+    if got.dtype != torch.bfloat16:
+        return
+    rel = normwise(got, plain(*(a.float() if a.is_floating_point() else a
+                                for a in args)))
+    log(f"{name} {label} bfloat16: normwise {rel:.3e} against the plain "
+        f"version in fp32 on the same bf16 inputs (tol "
+        f"{BF16_NORMWISE})")
+    if not rel <= BF16_NORMWISE:
+        raise AssertionError(f"{name} off the fp32 evaluation of its bf16 "
+                             f"inputs ({label})")
+
+
 def time_case(name, label, kernel, plain, library, bound, flush):
     t = dict(ms=median_ms(kernel, flush), plain_ms=median_ms(plain, flush),
              library_ms=median_ms(library, flush), bound=bound)
@@ -789,21 +853,31 @@ def time_case(name, label, kernel, plain, library, bound, flush):
     return t
 
 
-def attention_phase(pa, da, fa, device):
-    """Returns ({name: max abs err}, {name: timing at the main-path
-    shape}) for decode_attention and flash_attention."""
-    rng = np.random.default_rng(2)
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
-    err = {"decode_attention": 0.0, "flash_attention": 0.0}
-    timing, extra = {}, {}
+class AttentionCases:
+    """The dense attention kernels' cases, shared by the phases that run
+    them at a model's shapes.  Each case is held to its plain version at
+    ``TOL`` (bf16 also normwise within ``BF16_NORMWISE`` of the
+    plain version in fp32 on the same bf16 inputs) and to itself across
+    two launches, and timed beside its bound and one SDPA call where
+    ``timed`` is given; ``err`` keeps each kernel's worst max abs err."""
 
-    def dec(label, q, k, v, pos, lens, window, tile=BS, timed=None):
+    def __init__(self, pa, da, fa, rng, flush):
+        self.pa, self.da, self.fa = pa, da, fa
+        self.rng, self.flush, self.device = rng, flush, flush.device
+        self.err = {"decode_attention": 0.0, "flash_attention": 0.0}
+
+    def dec(self, label, q, k, v, pos, lens, window, tile=BS, timed=None):
+        da = self.da
         got = da.decode_attention(q, k, v, pos, lens, window=window,
                                   tile=tile)
         want = da.decode_attention_plain(q, k, v, pos, lens, window)
         torch.cuda.synchronize()
-        err["decode_attention"] = max(err["decode_attention"], check(
-            "decode_attention", label, got, want, q.dtype))
+        self.err["decode_attention"] = max(self.err["decode_attention"],
+                                           check("decode_attention", label,
+                                                 got, want, q.dtype))
+        bf16_vs_fp32("decode_attention", label, got,
+                     lambda *a: da.decode_attention_plain(*a, window),
+                     q, k, v, pos, lens)
         if timed is not None:
             timed[label] = time_case(
                 "decode_attention", label,
@@ -812,33 +886,36 @@ def attention_phase(pa, da, fa, device):
                 lambda: da.decode_attention_plain(q, k, v, pos, lens,
                                                   window),
                 lambda: sdpa_decode(q, k, v, pos, lens, window),
-                dense_decode_bound(q, k, pos, lens, window), flush)
+                dense_decode_bound(q, k, pos, lens, window), self.flush)
         return got
 
-    T = MAX_CONTEXT
-    arange = torch.arange(T, dtype=torch.int32, device=device)
-    for dtype in (torch.bfloat16, torch.float32):
-        q, k, v, lens = dense_decode_case(rng, B, H, H, D, T, dtype, device)
-        got = dec(f"B={B} H=K={H} D={D} T={T} ragged", q, k, v, arange,
-                  lens, 0)
-        # the paged kernel on the same K/V laid into a block pool
-        tables = torch.randperm(B * BPR, device=device).reshape(B, BPR).int()
+    def dec_identities(self, q, k, v, lens, windows):
+        """The dense cache ``k``/``v`` (MAX_CONTEXT slots, pos = arange)
+        laid into a block pool through a random table: the dense kernel
+        at tile = BS bit for bit against ``paged_decode_attention`` on the
+        pool, against itself on a DA_LONG_T-slot cache (empty past
+        cache_len, as the round engine's wider rounds give) and across two
+        launches, each row alone against its row in the batch.  Returns
+        (pools, tables)."""
+        da, pa = self.da, self.pa
+        B_, K, T, D_ = k.shape
+        device, dt = q.device, str(q.dtype)[6:]
+        arange = torch.arange(T, dtype=torch.int32, device=device)
+        tables = torch.randperm(B_ * BPR, device=device).reshape(
+            B_, BPR).int()
         pools = []
         for c in (k, v):
-            pool = torch.zeros(B * BPR + 1, BS, H, D, dtype=dtype,
+            pool = torch.zeros(B_ * BPR + 1, BS, K, D_, dtype=q.dtype,
                                device=device)
             pool[tables.long().reshape(-1)] = c.transpose(1, 2).reshape(
-                B * BPR, BS, H, D)
+                B_ * BPR, BS, K, D_)
             pools.append(pool)
-        dt = str(dtype)[6:]
-        # the same rows over a cache of DA_LONG_T slots: empty past
-        # cache_len, as the round engine's wider rounds give
         wide = [torch.cat([c.transpose(1, 2), torch.randn(
-                    B, DA_LONG_T - T, H, D, dtype=dtype, device=device)],
+                    B_, DA_LONG_T - T, K, D_, dtype=q.dtype, device=device)],
                           1).transpose(1, 2) for c in (k, v)]
         wide_pos = torch.arange(DA_LONG_T, dtype=torch.int32, device=device)
-        for window in (0, 37):
-            tag = f"{dt} window={window}"
+        for window in windows:
+            tag = f"{dt} H={q.shape[1]} K={K} D={D_} window={window}"
             got = da.decode_attention(q, k, v, arange, lens, window=window,
                                       tile=BS)
             identical("decode_attention", f"{tag} tile={BS}, pos=arange vs "
@@ -851,13 +928,72 @@ def attention_phase(pa, da, fa, device):
             identical("decode_attention", f"{tag}, two launches", got,
                       da.decode_attention(q, k, v, arange, lens,
                                           window=window, tile=BS))
-            for b in (0, 3, B - 1):
+            for b in (0, 3, B_ - 1):
                 one = da.decode_attention(q[b:b + 1], k[b:b + 1],
                                           v[b:b + 1], arange, lens[b:b + 1],
                                           window=window, tile=BS)
                 identical("decode_attention", f"{tag}, row {b} alone vs in "
-                          f"the batch of {B}", one[0], got[b])
-        del wide
+                          f"the batch of {B_}", one[0], got[b])
+        return pools, tables
+
+    def flash(self, label, B_, H_, K, S, T_, D_, causal, window, dtype,
+              timed=None):
+        fa = self.fa
+        q, k, v = (torch.tensor(self.rng.standard_normal(shape), dtype=dtype,
+                                device=self.device)
+                   for shape in ((B_, H_, S, D_), (B_, K, T_, D_),
+                                 (B_, K, T_, D_)))
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        again = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = fa.flash_attention_plain(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        self.err["flash_attention"] = max(self.err["flash_attention"], check(
+            "flash_attention", label, got, want, dtype))
+        same = torch.equal(got, again)
+        log(f"flash_attention {label} {str(dtype)[6:]}: reruns "
+            f"{'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError("flash_attention differs from itself")
+        del want, again
+        bf16_vs_fp32("flash_attention", label, got,
+                     lambda *a: fa.flash_attention_plain(*a, causal, window),
+                     q, k, v)
+        if window > 0 and S >= T_ + window:
+            # rows from T + window - 1 on have no valid key: mean of V
+            first = T_ + window - 1
+            mean = v.float().mean(dim=2, keepdim=True).repeat_interleave(
+                H_ // K, dim=1)
+            e = (got[:, :, first:].float() - mean).abs().max().item()
+            log(f"flash_attention {label}: rows {first}.. (no valid key) "
+                f"vs the mean of V: max abs err {e:.3e}")
+            if not e <= TOL[dtype]:
+                raise AssertionError("flash_attention: a row with no "
+                                     "valid key is not the mean of V")
+        if timed is not None:
+            timed[label] = time_case(
+                "flash_attention", label,
+                lambda: fa.flash_attention(q, k, v, causal=causal,
+                                           window=window),
+                lambda: fa.flash_attention_plain(q, k, v, causal, window),
+                lambda: sdpa_flash(q, k, v, causal, window),
+                flash_bound(q, k, causal, window), self.flush)
+
+
+def attention_phase(pa, da, fa, device):
+    """Returns ({name: max abs err}, {name: timing at the main-path
+    shape}) for decode_attention and flash_attention."""
+    rng = np.random.default_rng(2)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    cases = AttentionCases(pa, da, fa, rng, flush)
+    dec, flash = cases.dec, cases.flash
+    timing, extra = {}, {}
+
+    T = MAX_CONTEXT
+    arange = torch.arange(T, dtype=torch.int32, device=device)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, lens = dense_decode_case(rng, B, H, H, D, T, dtype, device)
+        dec(f"B={B} H=K={H} D={D} T={T} ragged", q, k, v, arange, lens, 0)
+        cases.dec_identities(q, k, v, lens, (0, 37))
         if dtype == torch.bfloat16:
             at100 = torch.full((B,), 100, dtype=torch.int32, device=device)
             dec("main path, every row at 100", q, k, v, arange, at100, 0,
@@ -888,44 +1024,6 @@ def attention_phase(pa, da, fa, device):
         torch.arange(DA_LONG_T, dtype=torch.int32, device=device), lens, 0,
         timed=extra)
 
-    def flash(label, B_, H_, K, S, T_, D_, causal, window, dtype,
-              timed=None):
-        q, k, v = (torch.tensor(rng.standard_normal(shape), dtype=dtype,
-                                device=device)
-                   for shape in ((B_, H_, S, D_), (B_, K, T_, D_),
-                                 (B_, K, T_, D_)))
-        got = fa.flash_attention(q, k, v, causal=causal, window=window)
-        again = fa.flash_attention(q, k, v, causal=causal, window=window)
-        want = fa.flash_attention_plain(q, k, v, causal, window)
-        torch.cuda.synchronize()
-        err["flash_attention"] = max(err["flash_attention"], check(
-            "flash_attention", label, got, want, dtype))
-        same = torch.equal(got, again)
-        log(f"flash_attention {label} {str(dtype)[6:]}: reruns "
-            f"{'bit-identical' if same else 'DIFFER'}")
-        if not same:
-            raise AssertionError("flash_attention differs from itself")
-        if window > 0 and S >= T_ + window:
-            # rows from T + window - 1 on have no valid key: mean of V
-            first = T_ + window - 1
-            mean = v.float().mean(dim=2, keepdim=True).repeat_interleave(
-                H_ // K, dim=1)
-            e = (got[:, :, first:].float() - mean).abs().max().item()
-            log(f"flash_attention {label}: rows {first}.. (no valid key) "
-                f"vs the mean of V: max abs err {e:.3e}")
-            if not e <= TOL[dtype]:
-                raise AssertionError("flash_attention: a row with no "
-                                     "valid key is not the mean of V")
-        del want, again
-        if timed is not None:
-            timed[label] = time_case(
-                "flash_attention", label,
-                lambda: fa.flash_attention(q, k, v, causal=causal,
-                                           window=window),
-                lambda: fa.flash_attention_plain(q, k, v, causal, window),
-                lambda: sdpa_flash(q, k, v, causal, window),
-                flash_bound(q, k, causal, window), flush)
-
     for dtype in (torch.bfloat16, torch.float32):
         flash(f"B={FA_B} H=K={H} S=T={FA_S} D={D} causal", FA_B, H, H,
               FA_S, FA_S, D, True, 0, dtype,
@@ -951,7 +1049,7 @@ def attention_phase(pa, da, fa, device):
         f"B={FA_B} H=K={H} S=T={FA_S} D={D} causal")
     del flush
     torch.cuda.empty_cache()
-    return err, timing
+    return cases.err, timing
 
 
 # --------------------------------------------------------------------------
@@ -1064,11 +1162,65 @@ def first_divergence(api, params, a, b, rid):
             f"argmax here {int(greedy_serving(logits)[0])}")
 
 
+def serve_phase(api, params, pa, da):
+    """Phases 4-5b: the 8-request workload through ``ContinuousEngine``
+    (paged, megastep 8, prefix sharing) at full width: one
+    ``paged_append`` and one ``paged_decode_attention`` launch a layer
+    and ``decode_fn`` call, no ``decode_attention``, a shared block; the
+    same streams bit for bit at megastep 1 and with sharing off, then on
+    the dense cache and through the round engine
+    (:func:`dense_serve_phase`).  Returns the paged run's launches with
+    the dense runs' ``decode_attention`` launches, and the paged run's
+    ``decode_fn`` calls."""
+    cfg = api.cfg
+    calls = count_calls(api)
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_launches()
+    da.reset_launches()
+    streams, eng, wall = serve_full_width(api, params, 8, True)
+    launched, n_calls = dict(pa.launches), calls[0]
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = sum(len(t) for t in streams.values())
+    log(f"serve: {cfg.name}: 8/8 requests, {n_tok} tokens in {wall:.3f} s "
+        f"({n_tok / wall:.1f} tok/s), {eng.dispatches} dispatches "
+        f"({eng.dispatches / n_tok:.4f} per token), {eng.megasteps} "
+        f"megasteps, {calls[0]} decode_fn calls, shared block hits "
+        f"{eng.kv.shared_block_hits}, peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"serve: {cfg.name}: launches {launched}, decode_attention "
+        f"{da.launches['decode_attention']}")
+    for name, n in launched.items():
+        if n != cfg.num_layers * calls[0]:
+            raise AssertionError(f"{name}: {n} launches for {calls[0]} "
+                                 f"decode_fn calls x {cfg.num_layers} "
+                                 f"layers")
+    if da.launches["decode_attention"]:
+        raise AssertionError("the paged run launched decode_attention")
+    if eng.kv.shared_block_hits == 0:
+        raise AssertionError("prefix sharing never engaged")
+
+    # phase 5: identity across megastep N and sharing
+    for megastep, sharing in ((1, True), (8, False)):
+        other, e2, w2 = serve_full_width(api, params, megastep, sharing)
+        same = other == streams
+        log(f"identity: {cfg.name} megastep {megastep}, sharing {sharing}: "
+            f"streams {'bit-identical' if same else 'DIFFER'} ({w2:.3f} s, "
+            f"{e2.dispatches} dispatches)")
+        if not same:
+            raise AssertionError("greedy streams differ")
+    del eng, e2
+    launched["decode_attention"] = dense_serve_phase(api, params, calls,
+                                                     streams, pa, da)
+    return launched, n_calls
+
+
 def dense_serve_phase(api, params, calls, paged_streams, pa, da):
     """Phase 5b: the paged run's workload through ContinuousEngine(paged=
     False) at megastep 8 and 1 and through ServingEngine.  Each run
-    zeroes the launch counts just before and reads them just after;
-    returns the decode_attention launches of the three runs."""
+    zeroes the launch counts just before and reads them just after, and
+    its streams must equal the paged run's (the first divergence is
+    printed before the phase fails); returns the decode_attention
+    launches of the three runs."""
     total = 0
     runs = (("continuous dense, megastep 8", 8),
             ("continuous dense, megastep 1", 1), ("round engine", None))
@@ -1111,9 +1263,7 @@ def dense_serve_phase(api, params, calls, paged_streams, pa, da):
                 log("dense:   first divergence: " + first_divergence(
                     api, params, streams[rid], paged_streams[rid], rid))
                 break
-        if label.startswith("continuous"):
-            raise AssertionError(f"{label}: streams differ from the paged "
-                                 f"run")
+        raise AssertionError(f"{label}: streams differ from the paged run")
     return total
 
 
@@ -1121,38 +1271,73 @@ def normwise(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def prefill_phase(api, params, kern, name, patch, xcheck, device,
-                  tol=PREFILL_TOL, readings=()):
-    """Phase 5c (and 10 for mamba2): prefill_fn at B=2, S=2048 through
-    the kernel ``name`` of package ``kern``, held to the same call with
-    the plain version patched in (``patch``: module, attribute, plain
-    function) — in the bf16 model at ``PREFILL_TOL`` and in an fp32
-    model with the same weights at ``PREFILL_TOL_FP32`` — and to the
-    token-by-token path on an ``xcheck``-token prompt.
+def prefill_tokens(cfg, device):
+    """The prefill phases' batch: PREFILL_B rows of PREFILL_S seeded
+    tokens."""
+    return {"tokens": torch.tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (PREFILL_B, PREFILL_S)), dtype=torch.int32,
+        device=device)}
 
-    ``tol`` is the bf16 limit; ``readings`` = ((label, function), ...):
-    variants of the plain version whose distance from it is printed
-    beside, to show where the limit lies.  Returns the launches of one
-    prefill_fn call."""
+
+def kernel_modules():
+    """The five kernel packages; each keeps its wrappers' launch
+    counts."""
+    from repro_torch.kernels import (branch_matmul, decode_attention,
+                                     flash_attention, paged_attention,
+                                     ssd_scan)
+
+    return (paged_attention, branch_matmul, decode_attention,
+            flash_attention, ssd_scan)
+
+
+def prefill_phase(api, params, batch, name, patch, xcheck, device,
+                  tol=PREFILL_TOL, readings=()):
+    """Phase 5c (10 for mamba2, 29 for qwen2-vl): prefill_fn on ``batch``
+    through the kernel ``name``, one launch a layer and no launch of
+    another kernel, held to the same call with the
+    plain version patched in (``patch``: module, attribute, function) —
+    in the bf16 model at ``tol`` and in an fp32 model with the same
+    weights at ``PREFILL_TOL_FP32`` — and to the token-by-token path on
+    the first ``xcheck`` tokens of row 0 (a text prompt: where the model
+    takes M-RoPE, every stream at the token's position).
+
+    ``readings`` = ((label, patch, faulty), ...): variants patched in,
+    each normwise from the plain version's logits inside ``tol`` where
+    sound and outside it where ``faulty``, so the limit is shown to
+    separate them.  Returns the launches of one prefill_fn call."""
     import importlib
 
+    from repro_torch.models import build_model
     from repro_torch.runtime.sampling import greedy_serving
     from repro_torch.runtime.stepper import Stepper
 
     cfg = api.cfg
-    rng = np.random.default_rng(3)
-    tokens = torch.tensor(rng.integers(0, cfg.vocab_size,
-                                       (PREFILL_B, PREFILL_S)),
-                          dtype=torch.int32, device=device)
-    batch = {"tokens": tokens}
+    mods = kernel_modules()
+
+    def patched(api_, params_, swap):
+        mod_name, attr, fn = swap
+        mod = importlib.import_module(mod_name)
+        saved = getattr(mod, attr)
+        setattr(mod, attr, fn)
+        try:
+            return api_.prefill_fn(params_, batch)
+        finally:
+            setattr(mod, attr, saved)
+
+    Bn, n_text = batch["tokens"].shape
+    n_front = batch["frontend_embeds"].shape[1] \
+        if "frontend_embeds" in batch else 0
+    shape = f"B={Bn} S={n_front + n_text}" + (
+        f" ({n_front} frontend + {n_text} text)" if n_front else "")
     with torch.no_grad():
         api.prefill_fn(params, batch)                      # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        kern.reset_launches()
+        for m in mods:
+            m.reset_launches()
         logits = api.prefill_fn(params, batch)
         torch.cuda.synchronize()
-        launched = kern.launches[name]
+        counts = kernel_counts(mods)
         peak = torch.cuda.max_memory_allocated()
         walls = []
         for _ in range(PREFILL_RUNS):
@@ -1160,32 +1345,22 @@ def prefill_phase(api, params, kern, name, patch, xcheck, device,
             api.prefill_fn(params, batch)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-        if logits.shape != (PREFILL_B, cfg.vocab_size) \
+        want = dict.fromkeys(counts, 0)
+        want[name] = cfg.num_layers
+        if logits.shape != (Bn, cfg.vocab_size) \
                 or not torch.isfinite(logits).all():
             raise AssertionError("prefill_fn: malformed logits")
-        if launched != cfg.num_layers:
-            raise AssertionError(f"prefill_fn: {launched} {name} "
-                                 f"launches, expected {cfg.num_layers}")
-        mod_name, attr, plain_fn = patch
-        mod = importlib.import_module(mod_name)
-        kernel = getattr(mod, attr)
-
-        def patched(api_, params_, fn):
-            setattr(mod, attr, fn)
-            try:
-                return api_.prefill_fn(params_, batch)
-            finally:
-                setattr(mod, attr, kernel)
-
-        plain = patched(api, params, plain_fn)
-        note = "".join(
-            f"; {label} {normwise(patched(api, params, fn), plain):.3e}"
-            for label, fn in readings)
+        if counts != want:
+            raise AssertionError(f"prefill_fn launches {counts}, expected "
+                                 f"{want}")
+        plain = patched(api, params, patch)
+        far = [(label, faulty, normwise(patched(api, params, swap), plain))
+               for label, swap, faulty in readings]
         torch.cuda.synchronize()
     rel = normwise(logits, plain)
     same_argmax = torch.equal(greedy_serving(logits), greedy_serving(plain))
-    log(f"prefill: {cfg.name} prefill_fn B={PREFILL_B} S={PREFILL_S} at "
-        f"full width: {launched} {name} launches per call, "
+    log(f"prefill: {cfg.name} prefill_fn {shape} at full width: "
+        f"{counts[name]} {name} launches per call, "
         f"{float(np.median(walls)):.3f} ms per call (median of "
         f"{PREFILL_RUNS}, {min(walls):.3f}-{max(walls):.3f}), peak device "
         f"memory {peak / 2**30:.2f} GiB; vs the plain version: max abs "
@@ -1194,25 +1369,31 @@ def prefill_phase(api, params, kern, name, patch, xcheck, device,
         f"{rel:.3e} (tol {tol:.3e}), argmax "
         f"{'equal' if same_argmax else 'DIFFERS'}")
     if readings:
-        log(f"prefill: variants of the plain version, normwise from "
-            f"it{note}")
+        log("prefill: variants of the plain version, normwise from it"
+            + "".join(f"; {label} {r:.3e}" for label, _, r in far))
     if not rel <= tol:
         raise AssertionError(f"prefill_fn off its plain-{name} version")
+    for label, faulty, r in far:
+        if (r <= tol) == faulty:
+            raise AssertionError(f"prefill_fn: the limit {tol} does not "
+                                 f"separate the variant {label} ({r:.3e})")
     # an fp32 model with the same weights: kernel against plain version
     # without bf16 rounding, and how far each bf16 path lies from it (the
     # kernel should add no more error than the plain version)
-    from repro_torch.models import build_model
-
     api32 = build_model(cfg, device=device, dtype="float32")
     p32 = api32.init(None)
     p32.load_state_dict(params.state_dict())
-    prompt = tokens[:1, :xcheck]
+    prompt = batch["tokens"][:1, :xcheck]
+    text = {"tokens": prompt}
+    if cfg.mrope_sections:
+        text["positions3"] = torch.arange(
+            xcheck, dtype=torch.int32, device=device).expand(3, 1, xcheck)
     with torch.no_grad():
         ref32 = api32.prefill_fn(p32, batch)
-        plain32 = patched(api32, p32, plain_fn)
+        plain32 = patched(api32, p32, patch)
         # the fp32 cross-check: prefill_fn against scalar token-by-token
         # decode on the dense cache, raw fp32 argmax (no bf16 ties)
-        full32 = api32.prefill_fn(p32, {"tokens": prompt})
+        full32 = api32.prefill_fn(p32, text)
         caches = api32.init_caches(1, xcheck, tile=BS)
         for i in range(xcheck):
             step32, caches = api32.decode_fn(p32, caches, {
@@ -1240,7 +1421,7 @@ def prefill_phase(api, params, kern, name, patch, xcheck, device,
 
     # the two serving paths on one xcheck-token prompt, in the bf16 model
     with torch.no_grad():
-        full = api.prefill_fn(params, {"tokens": prompt})
+        full = api.prefill_fn(params, text)
         stepper = Stepper(api)
         caches = api.init_caches(1, xcheck, tile=BS)
         _, _, first, _ = stepper.prefill_chunk(
@@ -1264,7 +1445,7 @@ def prefill_phase(api, params, kern, name, patch, xcheck, device,
     if not rel <= XCHECK_TOL or (a_full != a_step and not gap <= (
             full.float() - step.float()).abs().max().item()):
         raise AssertionError("prefill_fn and the decode path disagree")
-    return launched
+    return counts[name]
 
 
 KERNEL_FAMILIES = (                # (substring of the kernel name, family)
@@ -2361,9 +2542,7 @@ def scan_precision(api, params, ss, device):
     import repro_torch.models.ssm as ssm
 
     cfg = api.cfg
-    tokens = torch.tensor(np.random.default_rng(3).integers(
-        0, cfg.vocab_size, (PREFILL_B, PREFILL_S)), dtype=torch.int32,
-        device=device)
+    batch = prefill_tokens(cfg, device)
     kernel, seen = ssm.ssd_scan, []
 
     def keep(*args, **kwargs):
@@ -2374,7 +2553,7 @@ def scan_precision(api, params, ss, device):
     ssm.ssd_scan = keep
     try:
         with torch.no_grad():
-            api.prefill_fn(params, {"tokens": tokens})
+            api.prefill_fn(params, batch)
     finally:
         ssm.ssd_scan = kernel
     x, dt, A, Bm, Cm = seen[0]
@@ -2548,18 +2727,20 @@ def mamba_phases(ss, calls_wrap, device):
     def plain_dt_bf16(x, dt, A, B, C, chunk):   # x, B, C are bf16 values
         return ssd_scan_plain(x, dt.bfloat16().float(), A, B, C, chunk)
 
+    ssm = "repro_torch.models.ssm"
+    batch = prefill_tokens(cfg, device)
     launched = prefill_phase(
-        api, params, ss, "ssd_scan",
-        ("repro_torch.models.ssm", "ssd_scan", ssd_scan_plain),
-        MAMBA_XCHECK, device, tol=MAMBA_PREFILL_TOL, readings=(
-            (f"at chunk {cfg.ssm.chunk // 2}", plain_half_chunk),
-            ("faulty: with y rounded to bf16", plain_y_bf16),
-            ("faulty: on dt rounded to bf16", plain_dt_bf16)))
+        api, params, batch, "ssd_scan",
+        (ssm, "ssd_scan", ssd_scan_plain), MAMBA_XCHECK, device,
+        tol=MAMBA_PREFILL_TOL, readings=(
+            (f"at chunk {cfg.ssm.chunk // 2}",
+             (ssm, "ssd_scan", plain_half_chunk), False),
+            ("faulty: with y rounded to bf16",
+             (ssm, "ssd_scan", plain_y_bf16), True),
+            ("faulty: on dt rounded to bf16",
+             (ssm, "ssd_scan", plain_dt_bf16), True)))
     scan_precision(api, params, ss, device)
     step_profile(api, params, device)
-    tokens = torch.tensor(np.random.default_rng(3).integers(
-        0, cfg.vocab_size, (PREFILL_B, PREFILL_S)), dtype=torch.int32,
-        device=device)
     # the bf16 projections at the tensor-core peak plus 48 scans at their
     # bound: in_proj and out_proj over every token, the tied head over the
     # last token only (the embedding is a gather), over 989 TFLOP/s; and
@@ -2572,7 +2753,7 @@ def mamba_phases(ss, calls_wrap, device):
     scan_ms = cfg.num_layers * ssd_bound(PREFILL_B, PREFILL_S, 32, 1,
                                          SSD_N)[0]
     device_profile(f"{cfg.name} prefill_fn (B={PREFILL_B}, S={PREFILL_S})",
-                   lambda: api.prefill_fn(params, {"tokens": tokens}), 2,
+                   lambda: api.prefill_fn(params, batch), 2,
                    (matmul_ms + scan_ms, f"projection ({matmul_ms:.3f} ms) "
                     f"+ scan ({scan_ms:.3f} ms)"),
                    (("ssd_scan", ss.launches),))
@@ -3144,20 +3325,6 @@ def whisper_kernel_phase(da, fa, device):
             raise AssertionError(f"{name} differs from itself ({label})")
         return got
 
-    def exact(name, label, got, plain, *args):
-        """A bf16 result against ``plain`` in fp32 on the same bf16
-        values: normwise within ``WHISPER_BF16_NORMWISE``."""
-        if got.dtype != torch.bfloat16:
-            return
-        rel = normwise(got, plain(*(a.float() if a.is_floating_point()
-                                    else a for a in args)))
-        log(f"{name} whisper {label} bfloat16: normwise {rel:.3e} against "
-            f"the plain version in fp32 on the same bf16 inputs (tol "
-            f"{WHISPER_BF16_NORMWISE})")
-        if not rel <= WHISPER_BF16_NORMWISE:
-            raise AssertionError(f"{name} off the fp32 evaluation of its "
-                                 f"bf16 inputs ({label})")
-
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype)[6:]
         q, k, v = (torch.randn(Bw, Hw, T, Dw, generator=gen, device=device)
@@ -3170,8 +3337,9 @@ def whisper_kernel_phase(da, fa, device):
         err["flash_attention"] = max(err["flash_attention"], check(
             "flash_attention", f"whisper {label}", got, want, dtype))
         del want
-        exact("flash_attention", label, got,
-              lambda *a: fa.flash_attention_plain(*a, causal=False), q, k, v)
+        bf16_vs_fp32("flash_attention", f"whisper {label}", got,
+                     lambda *a: fa.flash_attention_plain(*a, causal=False),
+                     q, k, v)
         time_case(
             "flash_attention", f"whisper {label} {dt}",
             lambda: fa.flash_attention(q, k, v, causal=False),
@@ -3197,8 +3365,8 @@ def whisper_kernel_phase(da, fa, device):
             torch.cuda.synchronize()
             err["decode_attention"] = max(err["decode_attention"], check(
                 "decode_attention", f"whisper {label}", got, want, dtype))
-            exact("decode_attention", label, got,
-                  da.decode_attention_plain, q, k, v, pos, lens)
+            bf16_vs_fp32("decode_attention", f"whisper {label}", got,
+                         da.decode_attention_plain, q, k, v, pos, lens)
             for b in (0, Bw - 1):       # B = 1 splits as B = 8 does
                 one = da.decode_attention(q[b:b + 1], k[b:b + 1],
                                           v[b:b + 1], pos, lens[b:b + 1])
@@ -3223,9 +3391,9 @@ def whisper_kernel_phase(da, fa, device):
                     "flash_attention", f"whisper cross S=1 T={T}", got1,
                     fa.flash_attention_plain(q1, k, v, causal=False),
                     dtype))
-                exact("flash_attention", f"cross S=1 T={T}", got1,
-                      lambda *a: fa.flash_attention_plain(*a, causal=False),
-                      q1, k, v)
+                bf16_vs_fp32("flash_attention", f"whisper cross S=1 T={T}",
+                             got1, lambda *a: fa.flash_attention_plain(
+                                 *a, causal=False), q1, k, v)
                 time_case(
                     "flash_attention", f"whisper cross S=1 T={T} {dt}",
                     lambda: fa.flash_attention(q1, k, v, causal=False),
@@ -3244,8 +3412,7 @@ def plain_attention(da, fa):
     path (``attend_bshd`` and ``models.attention``'s decode calls)."""
     import importlib
 
-    fmod = importlib.import_module(
-        "repro_torch.kernels.flash_attention.flash_attention")
+    fmod = importlib.import_module(FLASH_MODULE)
     amod = importlib.import_module("repro_torch.models.attention")
     saved = fmod.flash_attention, amod.decode_attention
     fmod.flash_attention = fa.flash_attention_plain
@@ -3520,6 +3687,293 @@ def whisper_phases(da, fa, device, others):
 
 
 # --------------------------------------------------------------------------
+# phases 28-33: qwen2-vl-2b, the vision-language model (slice 9)
+# --------------------------------------------------------------------------
+
+def qwen_kernel_phase(pa, da, fa, device):
+    """Phase 28: the four attention kernels at qwen2-vl-2b's shapes (GQA
+    12/2, D = 128), in bf16 and fp32, through phase 3's
+    :class:`AttentionCases`: ``flash_attention`` at the prefill (B=2,
+    S=T=2048, causal), ``decode_attention`` at the serve phase's (B=8,
+    MAX_CONTEXT slots, ragged lengths) with its identities, and
+    ``paged_decode_attention`` on a block pool laid from the same K/V
+    against its plain version and with its identities; ``paged_append``
+    (C=1) bit for bit against its plain version.  bf16 timed (medians by
+    CUDA events, L2 flushed) beside the bound and the library call.
+    Returns ({name: max abs err}, {PERF.md row: timing})."""
+    H_, K, D_ = QWEN["H"], QWEN["K"], QWEN["D"]
+    rng = np.random.default_rng(9)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    cases = AttentionCases(pa, da, fa, rng, flush)
+    err = {"paged_decode_attention": 0.0, "paged_append": 0.0}
+    rows, timed = {}, {}
+    T = MAX_CONTEXT
+    arange = torch.arange(T, dtype=torch.int32, device=device)
+    flash = f"qwen2-vl B={FA_B} {H_}/{K} S=T={PREFILL_S} D={D_} causal"
+    at = f"qwen2-vl B={B} {H_}/{K} D={D_} T={T}, every row at 100"
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        bf16 = dtype == torch.bfloat16
+        cases.flash(flash, FA_B, H_, K, PREFILL_S, PREFILL_S, D_, True, 0,
+                    dtype, timed=timed if bf16 else None)
+        torch.cuda.empty_cache()
+
+        # the decode kernels: a dense cache and a pool of the same K/V
+        q, k, v, lens = dense_decode_case(rng, B, H_, K, D_, T, dtype,
+                                          device)
+        label = f"qwen2-vl B={B} {H_}/{K} D={D_} T={T} ragged"
+        cases.dec(label, q, k, v, arange, lens, 0)
+        pools, tables = cases.dec_identities(q, k, v, lens, (0,))
+        paged = pa.paged_decode_attention(q, *pools, tables, lens)
+        err["paged_decode_attention"] = max(
+            err["paged_decode_attention"], check(
+                "paged_decode_attention", label, paged,
+                pa.paged_decode_attention_plain(q, *pools, tables, lens, 0),
+                dtype))
+        bf16_vs_fp32("paged_decode_attention", label, paged,
+                     lambda q_, kp, vp: pa.paged_decode_attention_plain(
+                         q_, kp, vp, tables, lens, 0), q, *pools)
+        paged_identities(pa, q, *pools, tables, lens, 0, rng)
+        if bf16:
+            at100 = torch.full((B,), 100, dtype=torch.int32, device=device)
+            cases.dec(at, q, k, v, arange, at100, 0, timed=timed)
+            rows["4v"] = paged_timing(pa, at, q, *pools, tables, at100, 0,
+                                      flush)
+            rows["4v"]["library_ms"] = None
+        del q, k, v, pools, paged
+
+        # paged_append, the decode step's C = 1
+        k1, v1, kn, vn, tables, lens, nv = append_case(rng, dtype, device,
+                                                       K=K, D_=D_)
+        k2, v2 = k1.clone(), v1.clone()
+        pa.paged_append(k1, v1, kn, vn, tables, lens, nv)
+        pa.paged_append_plain(k2, v2, kn, vn, tables, lens, nv)
+        torch.cuda.synchronize()
+        identical("paged_append", f"qwen2-vl B={B} C=1 K={K} D={D_} {dt}, "
+                  f"n_valid {nv.tolist()}: pools vs the plain version",
+                  torch.stack([k1, v1]), torch.stack([k2, v2]))
+        if bf16:
+            nbytes = 4 * kn.numel() * kn.element_size() + 4 * B * 3
+            t = dict(ms=median_ms(lambda: pa.paged_append(
+                         k1, v1, kn, vn, tables, lens, nv), flush),
+                     plain_ms=median_ms(lambda: pa.paged_append_plain(
+                         k2, v2, kn, vn, tables, lens, nv), flush),
+                     bound=(nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                     library_ms=None)
+            log(f"paged_append qwen2-vl B={B} C=1 K={K} D={D_} {dt}: kernel "
+                f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+                f"{t['bound'][0]:.6f} ms (bytes)")
+            rows["5v"] = t
+        del k1, v1, k2, v2
+    rows["2v"], rows["3v"] = timed[flash], timed[at]
+    del flush
+    torch.cuda.empty_cache()
+    return err | cases.err, rows
+
+
+def qwen_prefill_flops(cfg, Bn, S):
+    """Operations of a Qwen2-VL prefill_fn call: every layer's GEMMs (QKV
+    with its biases, out, SwiGLU MLP) and causal attention, and the last
+    position's tied vocab head."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim()
+    H_, K = cfg.num_heads, cfg.num_kv_heads
+    gemm = 2 * Bn * S * (d * (H_ + 2 * K) * hd + H_ * hd * d
+                         + 3 * d * cfg.d_ff)
+    attn = 4 * Bn * H_ * hd * flash_pairs(S, S, True, 0)
+    return cfg.num_layers * (gemm + attn) + 2 * Bn * d * cfg.vocab_size
+
+
+def qwen_batch(api, gen, Bn, device):
+    """``Bn`` rows of the stub vision frontend (``num_frontend_tokens``
+    patch embeddings and the 3-stream positions) and PREFILL_S - n
+    seeded text tokens."""
+    from repro_torch.models import stub_vision_frontend
+
+    cfg = api.cfg
+    n = cfg.num_frontend_tokens
+    emb, pos3 = stub_vision_frontend(gen, cfg, Bn, PREFILL_S)
+    tokens = torch.tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (Bn, PREFILL_S - n)), dtype=torch.int32,
+        device=device)
+    return {"tokens": tokens, "frontend_embeds": emb, "positions3": pos3}
+
+
+def qwen_prefill_phase(api, params, fa, device):
+    """Phase 29: :func:`prefill_phase` on PREFILL_B rows of 1024 stub
+    vision patches and 1024 text tokens with the stub's 3-stream
+    positions (28 ``flash_attention`` launches a call and no other
+    kernel), with two planted faults the bf16 limit must see: the M-RoPE
+    sections in reverse order ((24, 24, 16) for (16, 24, 24): the same
+    sum, the streams' bands moved) and an attention that puts
+    query head h on KV head h % K in place of h // G; then a profile of
+    the call.  Returns its launches."""
+    from repro_torch.models.common import apply_mrope
+
+    cfg = api.cfg
+    G = cfg.num_heads // cfg.num_kv_heads
+    reverse = tuple(cfg.mrope_sections[::-1])
+    batch = qwen_batch(api, torch.Generator(device=device).manual_seed(1),
+                       PREFILL_B, device)
+
+    def misordered(x, positions3, sections, inv_freq):
+        return apply_mrope(x, positions3, reverse, inv_freq)
+
+    def heads_interleaved(q, k, v, causal=True, window=0):
+        return fa.flash_attention_plain(q, k.repeat(1, G, 1, 1),
+                                        v.repeat(1, G, 1, 1), causal, window)
+
+    launched = prefill_phase(
+        api, params, batch, "flash_attention",
+        (FLASH_MODULE, "flash_attention", fa.flash_attention_plain),
+        XCHECK_PROMPT, device, readings=(
+            (f"faulty: M-RoPE sections {reverse}",
+             ("repro_torch.models.attention", "apply_mrope", misordered),
+             True),
+            ("faulty: query head h on KV head h % K",
+             (FLASH_MODULE, "flash_attention", heads_interleaved), True)))
+    device_profile(
+        f"{cfg.name} prefill_fn (B={PREFILL_B}, S={PREFILL_S})",
+        lambda: api.prefill_fn(params, batch), 3,
+        (qwen_prefill_flops(cfg, PREFILL_B, PREFILL_S)
+         / PEAK_FLOPS[torch.bfloat16] * 1e3, "operations"),
+        (("flash_attention", fa.launches),))
+    return launched
+
+
+def qwen_serve_phase(api, params, pa, da, device):
+    """Phase 30: :func:`serve_phase` on qwen2-vl-2b (28 ``paged_append``
+    and 28 ``paged_decode_attention`` launches a ``decode_fn`` call,
+    streams bit-identical at megastep 1, with sharing off, on the dense
+    cache with 28 ``decode_attention`` a call and through the round
+    engine); one ``decode_fn`` call with explicit equal ``positions3``
+    bit-identical to the call without them, paged and dense; profiles of
+    a decode step.  Returns the paged launches of one call."""
+    cfg = api.cfg
+    launched, n_calls = serve_phase(api, params, pa, da)
+    log(f"qwen2-vl dense: {launched.pop('decode_attention')} "
+        f"decode_attention launches in the three dense runs")
+
+    # explicit positions3 equal to cache_len on every stream change nothing
+    tokens = torch.tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (B, 1)), dtype=torch.int32, device=device)
+    at100 = torch.full((B,), 100, dtype=torch.int32, device=device)
+    step = {"tokens": tokens, "cache_len": at100,
+            "active": torch.ones(B, dtype=torch.bool, device=device),
+            "block_tables": torch.arange(B * BPR, dtype=torch.int32,
+                                         device=device).reshape(B, BPR)}
+    with torch.no_grad():
+        for label, init in (
+                ("paged", lambda: api.init_paged_caches(B, B * BPR, BS)),
+                ("dense", lambda: api.init_caches(B, MAX_CONTEXT,
+                                                  tile=BS))):
+            a, _ = api.decode_fn(params, init(), step)
+            b, _ = api.decode_fn(params, init(), dict(
+                step, positions3=at100[None, :, None].expand(3, B, 1)))
+            identical("qwen2-vl decode_fn", f"{label}, explicit positions3 "
+                      f"= cache_len vs none", a, b)
+    step_profile(api, params, device, (
+        ("paged_decode_attention", pa.launches),
+        ("decode_attention", da.launches)))
+    return {k: v // n_calls for k, v in launched.items()}
+
+
+def qwen_train_phase(api, params, fa, ss, bm, device):
+    """Phase 31: ``make_train_step`` on ``api.loss_fn`` at full width,
+    B=QWEN_TRAIN_B rows of 1024 stub vision patches and 1024 text tokens
+    (labels for the text only, from ``SyntheticTokens(seed=0)``), AdamW
+    on fp32 masters: step 1 against the plain versions
+    (``first_step_check``: 56 ``flash_attention`` launches), then
+    QWEN_TRAIN_STEPS steps (each launching 56, step 1 bit-identical to
+    the checked one) with peak memory, and a profiled step."""
+    from repro_torch.data import SyntheticTokens, to_device
+    from repro_torch.models import stub_vision_frontend
+    from repro_torch.training import (OptConfig, init_opt_state,
+                                      make_train_step)
+
+    cfg = api.cfg
+    n = cfg.num_frontend_tokens
+    batch = to_device(next(SyntheticTokens(cfg.vocab_size, PREFILL_S - n,
+                                           QWEN_TRAIN_B, seed=0)), device)
+    batch["frontend_embeds"], batch["positions3"] = stub_vision_frontend(
+        torch.Generator(device=device).manual_seed(2), cfg, QWEN_TRAIN_B,
+        PREFILL_S)
+    label = (f"{cfg.name} B={QWEN_TRAIN_B} S={PREFILL_S} ({n} vision + "
+             f"{PREFILL_S - n} text)")
+    want = expected_train_launches(cfg)
+    first = first_step_check(api, params, batch, fa, ss, bm, want, label)
+    opt_cfg = OptConfig(lr=TRAIN_LR, warmup_steps=2)
+    state = init_opt_state(params, opt_cfg)
+    step = make_train_step(api, opt_cfg)
+
+    def run(record):
+        nonlocal params, state
+        for i in range(QWEN_TRAIN_STEPS):
+            t1 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            m = {k: float(v) for k, v in m.items()}
+            m["seconds"] = time.perf_counter() - t1
+            record(i, params, state, m)
+
+    tokens = QWEN_TRAIN_B * PREFILL_S
+    total = train_run(label, run, want, (fa, ss, bm), first.item(), tokens,
+                      QWEN_TRAIN_STEPS)
+    device_profile(f"{label} train step", lambda: step(params, state, batch),
+                   1, train_step_bound(params, tokens),
+                   (("flash_attention", fa.launches),), grad=True)
+    del state, step, batch
+    free()
+    return total["flash_attention"] // QWEN_TRAIN_STEPS
+
+
+def qwen_phases(pa, da, fa, ss, bm, device):
+    """Phases 28-33: qwen2-vl-2b at full width (28 layers, d_model 1536,
+    GQA 12/2 heads of 128, bf16, random weights from ``torch.Generator``
+    seed 0): the kernels at its shapes, ``prefill_fn`` with the stub
+    vision frontend, the serving engines, training, and its DAG through
+    the planner and ``parallax-hetero``.  Returns ({PERF.md row: timing},
+    {name: max abs err}, launches a call)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    err, rows = qwen_kernel_phase(pa, da, fa, device)
+    cfg = get_config("qwen2-vl-2b")
+    t0 = time.perf_counter()
+    api = build_model(cfg, device=device)
+    params = api.init(torch.Generator(device=device).manual_seed(0))
+    n_params = sum(p.numel() for p in params.parameters())
+    torch.cuda.synchronize()
+    log(f"model: {cfg.name} full width, {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.resolved_head_dim()}, M-RoPE {cfg.mrope_sections}, "
+        f"{n_params / 1e9:.3f} B params in {api.dtype} (ModelConfig."
+        f"param_count {cfg.param_count() / 1e9:.3f} B), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches = {"prefill_fn flash_attention": qwen_prefill_phase(
+        api, params, fa, device)}
+    launches |= {f"decode_fn {k}": v for k, v in qwen_serve_phase(
+        api, params, pa, da, device).items()}
+    launches["train step flash_attention"] = qwen_train_phase(
+        api, params, fa, ss, bm, device)
+    del api, params
+    free()
+
+    # the DAG at full width (fp32): planner and parallax-hetero
+    lm = build_model(cfg, device=device, dtype="float32").init(
+        torch.Generator(device=device).manual_seed(0))
+    modes = {k: v for k, v in MODES.items() if k != "fused, kernel off"}
+    dag_check("qwen2-vl DAG", cfg, lm, QWEN_DAG_SEQ, modes, RUNS_B, device,
+              arena=True)
+    hetero_dag("hetero G", cfg, lm, QWEN_DAG_SEQ, device,
+               ("MOBILE_CONFIG", "H100_CONFIG"),
+               normwise_close(HETERO_NORMWISE, argmax=True))
+    del lm
+    free()
+    log(f"qwen2-vl phases: {time.perf_counter() - t_phase:.1f} s")
+    return rows, err, launches
+
+
+# --------------------------------------------------------------------------
 # phases 23-27: training (slice 8)
 # --------------------------------------------------------------------------
 
@@ -3533,8 +3987,7 @@ def patched_kernels(flash, scan, gemm):
     import importlib
 
     mods = [(importlib.import_module(m), n) for m, n in (
-        ("repro_torch.kernels.flash_attention.flash_attention",
-         "flash_attention"),
+        (FLASH_MODULE, "flash_attention"),
         ("repro_torch.models.ssm", "ssd_scan"),
         ("repro_torch.models.moe", "branch_matmul"))]
     saved = [getattr(m, n) for m, n in mods]
@@ -3872,8 +4325,9 @@ def first_step_check(api, params, batch, fa, ss, bm, want, label):
     return loss
 
 
-def train_run(label, run, want, mods, first_loss, tokens):
-    """``run(on_step)`` trains TRAIN_STEPS steps; every step must launch
+def train_run(label, run, want, mods, first_loss, tokens,
+              n_steps=TRAIN_STEPS):
+    """``run(on_step)`` trains ``n_steps`` steps; every step must launch
     ``want`` and give a finite loss and grad_norm, and step 1's loss must
     equal ``first_loss`` bit for bit.  Logs ms a step, tokens/s and peak
     memory; returns the launches of the whole run."""
@@ -3901,7 +4355,7 @@ def train_run(label, run, want, mods, first_loss, tokens):
         f"{len(steps)}, {min(secs) * 1e3:.1f}-{max(secs) * 1e3:.1f}; step 1 "
         f"{steps[0][0]['seconds'] * 1e3:.1f} ms), {tokens / ms * 1e3:.0f} "
         f"tokens/s, peak device memory {peak / 2**30:.2f} GiB")
-    if len(steps) != TRAIN_STEPS:
+    if len(steps) != n_steps:
         raise AssertionError(f"{label}: {len(steps)} steps")
     for i, (m, launched) in enumerate(steps):
         if launched != want:
@@ -4126,45 +4580,11 @@ def main() -> int:
     log(f"model: {cfg.name} full width, {cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, {n_params / 1e9:.3f} B params in {api.dtype}, "
         f"init {time.perf_counter() - t0:.1f} s")
-    calls = count_calls(api)
-    torch.cuda.reset_peak_memory_stats()
-    pa.reset_launches()
-    streams, eng, wall = serve_full_width(api, params, 8, True)
-    main_launches = dict(pa.launches)
-    peak = torch.cuda.max_memory_allocated()
-    n_tok = sum(len(t) for t in streams.values())
-    log(f"serve: 8/8 requests, {n_tok} tokens in {wall:.3f} s "
-        f"({n_tok / wall:.1f} tok/s), {eng.dispatches} dispatches "
-        f"({eng.dispatches / n_tok:.4f} per token), {eng.megasteps} "
-        f"megasteps, {calls[0]} decode_fn calls, shared block hits "
-        f"{eng.kv.shared_block_hits}, peak device memory "
-        f"{peak / 2**30:.2f} GiB")
-    log(f"launches on the main path: {main_launches}")
-    for name, n in main_launches.items():
-        if n != cfg.num_layers * calls[0]:
-            raise AssertionError(f"{name}: {n} launches for {calls[0]} "
-                                 f"decode_fn calls x {cfg.num_layers} "
-                                 f"layers")
-    if eng.kv.shared_block_hits == 0:
-        raise AssertionError("prefix sharing never engaged")
-
-    # phase 5: identity across megastep N and sharing
-    for megastep, sharing in ((1, True), (8, False)):
-        other, e2, w2 = serve_full_width(api, params, megastep, sharing)
-        same = other == streams
-        log(f"identity: megastep {megastep}, sharing {sharing}: streams "
-            f"{'bit-identical' if same else 'DIFFER'} ({w2:.3f} s, "
-            f"{e2.dispatches} dispatches)")
-        if not same:
-            raise AssertionError("greedy streams differ")
-    del eng, e2
-    main_launches["decode_attention"] = dense_serve_phase(
-        api, params, calls, streams, pa, da)
+    main_launches, _ = serve_phase(api, params, pa, da)
     main_launches["flash_attention"] = prefill_phase(
-        api, params, fa, "flash_attention",
-        ("repro_torch.kernels.flash_attention.flash_attention",
-         "flash_attention", fa.flash_attention_plain), XCHECK_PROMPT,
-        device)
+        api, params, prefill_tokens(cfg, device), "flash_attention",
+        (FLASH_MODULE, "flash_attention", fa.flash_attention_plain),
+        XCHECK_PROMPT, device)
     step_profile(api, params, device, (
         ("paged_decode_attention", pa.launches),
         ("decode_attention", da.launches)))
@@ -4204,6 +4624,16 @@ def main() -> int:
     whisper_launches = whisper_phases(da, fa, device, (pa, bm, ss))
     gc.collect()
     torch.cuda.empty_cache()
+    qwen_rows, qwen_err, qwen_launches = qwen_phases(pa, da, fa, ss, bm,
+                                                     device)
+    for name, e in qwen_err.items():
+        err[name] = max(err[name], e)
+    for row, t in qwen_rows.items():
+        log(f"qwen2-vl kernel row {row}: {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, library {t.get('library_ms')}, bound "
+            f"{t['bound'][0]:.6f} ms ({t['bound'][1]})")
+    gc.collect()
+    torch.cuda.empty_cache()
     grad_rows, grad_launches = training_phases(fa, ss, bm, device)
 
     rows = []
@@ -4225,6 +4655,7 @@ def main() -> int:
                      "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
                      "library_ms": t["library_ms"], "fwd_ms": t["fwd_ms"]})
     print("whisper launches per call: " + json.dumps(whisper_launches))
+    print("qwen2-vl launches per call: " + json.dumps(qwen_launches))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

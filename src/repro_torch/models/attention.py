@@ -40,7 +40,7 @@ from repro_torch.kernels.flash_attention import attend_bshd
 from repro_torch.kernels.paged_attention import (paged_append,
                                                  paged_decode_attention)
 
-from .common import apply_rope, dense_init, param, rope_freqs
+from .common import apply_mrope, apply_rope, dense_init, param, rope_freqs
 
 NEG_INF = -1e30
 
@@ -69,11 +69,12 @@ class Attention(nn.Module):
             .to(device), persistent=False)
 
 
-def qkv_project(params: Attention, cfg, x, positions=None):
-    """x: (B, S, d) -> q (B,S,H,D), k/v (B,S,K,D) with RoPE applied."""
-    if cfg.mrope_sections:
-        raise NotImplementedError(
-            "M-RoPE arrives with the Qwen2-VL slice")
+def qkv_project(params: Attention, cfg, x, positions=None,
+                positions3=None):
+    """x: (B, S, d) -> q (B,S,H,D), k/v (B,S,K,D) with RoPE applied: by
+    ``positions3`` (3, B, S) through M-RoPE when the config has
+    ``mrope_sections`` (Qwen2-VL), else by ``positions`` (none: no
+    RoPE)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim()
     H, K = cfg.num_heads, cfg.num_kv_heads
@@ -87,7 +88,12 @@ def qkv_project(params: Attention, cfg, x, positions=None):
     q = proj(params.wq, params.bq, H)
     k = proj(params.wk, params.bk, K)
     v = proj(params.wv, params.bv, K)
-    if positions is not None:
+    if cfg.mrope_sections:
+        if positions3 is None:
+            raise ValueError("M-RoPE needs 3-stream positions")
+        q = apply_mrope(q, positions3, cfg.mrope_sections, params.inv_freq)
+        k = apply_mrope(k, positions3, cfg.mrope_sections, params.inv_freq)
+    elif positions is not None:
         q = apply_rope(q, positions, params.inv_freq)
         k = apply_rope(k, positions, params.inv_freq)
     return q, k, v
@@ -132,12 +138,10 @@ def self_attention(params: Attention, cfg, x, positions=None,
                    positions3=None, causal=True,
                    window: "int | None" = None):
     """Full prefill self-attention over x: (B, S, d), through the
-    ``flash_attention`` kernel (its plain version on CPU tensors)."""
-    if positions3 is not None:
-        raise NotImplementedError(
-            "3-stream (M-RoPE) positions arrive with the Qwen2-VL slice")
+    ``flash_attention`` kernel (its plain version on CPU tensors);
+    ``positions3`` (3, B, S) drive M-RoPE in a Qwen2-VL config."""
     B, S, _ = x.shape
-    q, k, v = qkv_project(params, cfg, x, positions)
+    q, k, v = qkv_project(params, cfg, x, positions, positions3)
     w = cfg.sliding_window if window is None else window
     # as in the JAX model, the window applies to the causal mask only
     ctx = attend_bshd(q, k, v, causal=causal, window=w if causal else 0)
@@ -244,7 +248,8 @@ def _slot_positions(slots: int, device: torch.device) -> torch.Tensor:
 
 
 def decode_step_attention(params: Attention, cfg, x, cache, cache_len,
-                          window: int = 0, active=None, block_tables=None):
+                          positions3=None, window: int = 0, active=None,
+                          block_tables=None):
     """One-token decode: x (B, 1, d) against a KV cache.
 
     ``cache_len`` is the number of tokens already in the cache; the new
@@ -265,6 +270,10 @@ def decode_step_attention(params: Attention, cfg, x, cache, cache_len,
     written by the row's own steps and everything else is masked to an
     exact zero weight, so a new slot tenant needs no cache reset.
 
+    ``positions3`` (3, B, 1) rotate q and k in a Qwen2-VL config; left
+    out, each path broadcasts its own positions to the three streams, as
+    JAX's do (the serving engines pass none).
+
     Returns ``(out (B, 1, d), cache)``; the cache is updated in place.
     """
     cache_len = torch.as_tensor(cache_len, dtype=torch.int32,
@@ -276,19 +285,21 @@ def decode_step_attention(params: Attention, cfg, x, cache, cache_len,
                 "paged caches require vector cache_len (B,) and a "
                 "(B, blocks_per_seq) block table")
         return _decode_step_attention_paged(params, cfg, x, cache,
-                                            cache_len, block_tables, w,
-                                            active)
+                                            cache_len, block_tables,
+                                            positions3, w, active)
     if cache_len.ndim == 1:
         return _decode_step_attention_vec(params, cfg, x, cache, cache_len,
-                                          w, active)
+                                          positions3, w, active)
     if active is not None:
         raise ValueError(
             "per-row `active` gating requires vector cache_len (B,): the "
             "scalar path writes every row's cache unconditionally")
     B = x.shape[0]
     k, v, pos = cache["k"], cache["v"], cache["pos"]
-    q, k_new, v_new = qkv_project(params, cfg, x,
-                                  cache_len.reshape(1, 1).expand(B, 1))
+    positions = cache_len.reshape(1, 1).expand(B, 1)
+    if positions3 is None and cfg.mrope_sections:
+        positions3 = positions.expand(3, B, 1)
+    q, k_new, v_new = qkv_project(params, cfg, x, positions, positions3)
     slot = (cache_len % k.shape[1]).reshape(1).long()
     k.index_copy_(1, slot, k_new.to(k.dtype))
     v.index_copy_(1, slot, v_new.to(v.dtype))
@@ -300,7 +311,7 @@ def decode_step_attention(params: Attention, cfg, x, cache, cache_len,
 
 
 def _decode_step_attention_vec(params: Attention, cfg, x, cache, cache_len,
-                               window, active):
+                               positions3, window, active):
     """Vector-``cache_len`` decode step on a dense cache.
 
     PRECONDITION (not checked here: the serving engines enforce it by
@@ -314,7 +325,10 @@ def _decode_step_attention_vec(params: Attention, cfg, x, cache, cache_len,
     B = x.shape[0]
     k, v = cache["k"], cache["v"]
     slots = k.shape[1]
-    q, k_new, v_new = qkv_project(params, cfg, x, cache_len[:, None])
+    positions = cache_len[:, None]                        # (B, 1)
+    if positions3 is None and cfg.mrope_sections:
+        positions3 = positions.expand(3, B, 1)
+    q, k_new, v_new = qkv_project(params, cfg, x, positions, positions3)
     write = (cache_len >= 0) & (cache_len < slots)
     if active is not None:
         write = write & active
@@ -331,12 +345,16 @@ def _decode_step_attention_vec(params: Attention, cfg, x, cache, cache_len,
 
 
 def _decode_step_attention_paged(params: Attention, cfg, x, cache,
-                                 cache_len, block_tables, window, active):
+                                 cache_len, block_tables, positions3,
+                                 window, active):
     """Vector decode step over a physically paged KV pool: the new token
     is written by ``paged_append`` (inactive rows write the scratch
     block), then ``paged_decode_attention`` attends through the table."""
     B = x.shape[0]
-    q, k_new, v_new = qkv_project(params, cfg, x, cache_len[:, None])
+    positions = cache_len[:, None]                        # (B, 1)
+    if positions3 is None and cfg.mrope_sections:
+        positions3 = positions.expand(3, B, 1)
+    q, k_new, v_new = qkv_project(params, cfg, x, positions, positions3)
     n_valid = (torch.ones_like(cache_len) if active is None
                else active.to(torch.int32))
     paged_append(cache["k_pool"], cache["v_pool"], k_new.contiguous(),

@@ -99,16 +99,17 @@ def _channel_mix(params: Block, cfg, x, moe_impl):
     return x + y.reshape(B, S, d), aux
 
 
-def apply_block(params: Block, cfg, x, positions=None, window=None,
-                moe_impl="ragged"):
-    """Full-sequence (prefill) block.  x: (B, S, d) -> (x, aux loss).
+def apply_block(params: Block, cfg, x, positions=None, positions3=None,
+                window=None, moe_impl="ragged"):
+    """Full-sequence (prefill) block.  x: (B, S, d) -> (x, aux loss);
+    ``positions3`` (3, B, S) drive M-RoPE in a Qwen2-VL config.
 
     The JAX block also takes a mesh, for ``moe_ep``; the port has no
     mesh yet (ROADMAP §1 item 7)."""
     h = norm(params.norm1, x)
     if params.kind[0] == "attn":
-        y = self_attention(params.attn, cfg, h, positions, causal=True,
-                           window=window)
+        y = self_attention(params.attn, cfg, h, positions, positions3,
+                           causal=True, window=window)
     else:
         y = mamba_block(params.mamba, cfg, h)
     return _channel_mix(params, cfg, x + y, moe_impl)
@@ -134,7 +135,7 @@ def init_paged_block_cache(cfg, kind, batch, num_blocks, block_size, dtype,
 
 
 def decode_block(params: Block, cfg, x, cache, cache_len, active=None,
-                 block_tables=None, moe_impl="ragged"):
+                 block_tables=None, moe_impl="ragged", positions3=None):
     """Single-token decode block.  x: (B, 1, d).
 
     ``cache`` is a dense or a paged KV cache (see
@@ -147,11 +148,14 @@ def decode_block(params: Block, cfg, x, cache, cache_len, active=None,
     vector ``cache_len`` are device tensors that the decode megastep
     advances per row without a host round trip.  An MoE channel routes
     every row, active or not, as in JAX; its aux loss is dropped.
+    ``positions3`` (3, B, 1) go to the attention mixer (M-RoPE; see
+    attention.decode_step_attention).
     """
     h = norm(params.norm1, x)
     if params.kind[0] == "attn":
         y, cache = decode_step_attention(params.attn, cfg, h, cache,
-                                         cache_len, active=active,
+                                         cache_len, positions3,
+                                         active=active,
                                          block_tables=block_tables)
     else:
         y, new = mamba_decode_step(params.mamba, cfg, h, cache)

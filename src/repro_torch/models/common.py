@@ -3,11 +3,14 @@
 Port of ``repro.models.common``.  Parameters live in ``nn.Module``s
 (see :mod:`.blocks`, :mod:`.transformer`); every function here is
 ``fn(params, x, ...) -> y`` on tensors, with the same arithmetic as the
-JAX reference: norms in fp32 with the result cast back, RoPE in fp32,
-Whisper's sinusoidal positions in float64 then fp32.
+JAX reference: norms in fp32 with the result cast back, RoPE and
+Qwen2-VL's M-RoPE in fp32, Whisper's sinusoidal positions in float64
+then fp32.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -114,6 +117,37 @@ def apply_rope(x, positions, inv_freq):
     ``inv_freq`` is :func:`rope_freqs` as a float32 tensor on x's
     device."""
     ang = positions[..., :, None, None].float() * inv_freq  # (...,S,1,hd/2)
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=8)
+def _section_ids(sections: tuple, device: torch.device) -> torch.Tensor:
+    """(half,) long: the position stream (0 t, 1 h, 2 w) of each
+    frequency band, the bands contiguous in stream order."""
+    ids = np.concatenate([np.full((s,), i) for i, s in enumerate(sections)])
+    return torch.from_numpy(ids).to(device)
+
+
+def apply_mrope(x, positions3, sections, inv_freq):
+    """Multimodal RoPE (Qwen2-VL, arXiv:2409.12191).
+
+    x: (..., S, H, head_dim); ``positions3`` (3, ..., S): temporal,
+    height and width position ids (all equal for text tokens);
+    ``sections`` split the *rotary half* of head_dim among the three
+    streams, e.g. (16, 24, 24) at head_dim 128.  Each stream's angles
+    are :func:`apply_rope`'s, and each band takes its stream's by
+    selection, so three equal streams give :func:`apply_rope`'s bits."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not split "
+                         f"the rotary half {half}")
+    sect = _section_ids(tuple(sections), x.device)
+    t, h, w = (positions3[i][..., :, None, None].float() * inv_freq
+               for i in range(3))                     # (..., S, 1, half)
+    ang = torch.where(sect == 0, t, torch.where(sect == 1, h, w))
     sin, cos = torch.sin(ang), torch.cos(ang)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -12,23 +12,29 @@ Port of ``repro.models.model``::
 
 ``build_model`` runs on ``cuda`` unless ``device="cpu"`` is passed, and
 raises without a card.  It serves the decoder family: ``arch_type``
-``dense``, ``moe`` (an MoE channel mix in the layers ``cfg.is_moe_layer``
-names, optionally with a shared expert, through ``moe_dense`` for up to
-4 experts and ``moe_ragged`` on the ``branch_matmul`` kernel above that,
-as :func:`_moe_impl_for` picks and JAX picks) and ``ssm`` (mamba2:
-Mamba2 mixers with no channel mix, whose caches are per-row SSM state
-and conv windows, on the dense and the paged path alike;
-``prefill_fn`` needs S to be a multiple of ``cfg.ssm.chunk``), and
-hybrids of the two mixers.  It serves the encoder-decoder family
-(whisper) through :func:`_build_encdec`: ``prefill_fn`` takes
-``{"frames": (B, S_enc, d), "tokens": (B, 1)}`` (frames from
-:func:`stub_audio_frontend`), dense caches only (``init_paged_caches``
-is None).  Weights are stored in ``cfg.dtype`` (or ``dtype``); norm
-parameters, the MoE router and the SSM's ``A_log``, ``D`` and
-``dt_bias`` stay fp32.  ``loss_fn`` takes ``{"tokens", "labels"}``
-(and ``"frames"`` for whisper) and returns ``(loss, {"ce", "aux"})`` (no
-``"aux"`` for whisper), differentiable with respect to the params once
-their gradients are on (see :mod:`repro_torch.training`).
+``dense``; ``vlm`` (Qwen2-VL: M-RoPE over ``(3, B, S)`` positions and
+vision-patch embeddings prepended to the tokens, both from
+:func:`stub_vision_frontend`, which ``prefill_fn`` and ``loss_fn`` take
+as ``"frontend_embeds"`` and ``"positions3"``; ``decode_fn`` puts every
+stream at ``cache_len`` unless given ``"positions3"`` (3, B, 1));
+``moe`` (an MoE channel mix in the layers ``cfg.is_moe_layer`` names,
+optionally with a shared expert, through ``moe_dense`` for up to 4
+experts and ``moe_ragged`` on the ``branch_matmul`` kernel above that,
+as :func:`_moe_impl_for` picks and JAX picks); ``ssm`` (mamba2: Mamba2
+mixers with no channel mix, whose caches are per-row SSM state and conv
+windows, on the dense and the paged path alike; ``prefill_fn`` needs S
+to be a multiple of ``cfg.ssm.chunk``); and hybrids of the two mixers.
+It serves the encoder-decoder family (whisper) through
+:func:`_build_encdec`: ``prefill_fn`` takes ``{"frames": (B, S_enc,
+d), "tokens": (B, 1)}`` (frames from :func:`stub_audio_frontend`),
+dense caches only (``init_paged_caches`` is None).  Weights are stored
+in ``cfg.dtype`` (or ``dtype``); norm parameters, the MoE router and
+the SSM's ``A_log``, ``D`` and ``dt_bias`` stay fp32.  ``loss_fn`` takes
+``{"tokens", "labels"}`` (and ``"frames"`` for whisper; Qwen2-VL's
+frontend positions carry no loss, so its labels are the tokens', (B,
+S_txt)) and returns ``(loss, {"ce", "aux"})`` (no ``"aux"`` for
+whisper), differentiable with respect to the params once their
+gradients are on (see :mod:`repro_torch.training`).
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device, torch_dtype
@@ -83,24 +90,29 @@ def build_model(cfg, device=None, dtype=None) -> ModelAPI:
         _check_generator(gen, device)
         return transformer.init_lm(gen, cfg, device, dtype)
 
+    def optional(batch, key):
+        t = batch.get(key)
+        return None if t is None else torch.as_tensor(t, device=device)
+
     def loss_fn(params, batch):
         return transformer.lm_loss(
             params, cfg, torch.as_tensor(batch["tokens"], device=device),
             torch.as_tensor(batch["labels"], device=device),
-            batch.get("frontend_embeds"), batch.get("positions3"),
+            optional(batch, "frontend_embeds"), optional(batch, "positions3"),
             moe_impl=moe_impl)
 
     def prefill_fn(params, batch):
         return transformer.prefill_lm(
             params, cfg, torch.as_tensor(batch["tokens"], device=device),
-            batch.get("frontend_embeds"), batch.get("positions3"),
+            optional(batch, "frontend_embeds"), optional(batch, "positions3"),
             moe_impl=moe_impl)
 
     def decode_fn(params, caches, batch):
         return transformer.decode_lm(
             params, cfg, caches, batch["tokens"], batch["cache_len"],
             active=batch.get("active"),
-            block_tables=batch.get("block_tables"), moe_impl=moe_impl)
+            block_tables=batch.get("block_tables"), moe_impl=moe_impl,
+            positions3=batch.get("positions3"))
 
     def init_caches(batch, max_len, cache_dtype=None, ring=False,
                     tile=16):
@@ -170,6 +182,33 @@ def _build_encdec(cfg, device, dtype) -> ModelAPI:
 # --------------------------------------------------------------------------
 # frontend stubs (smoke tests / examples need concrete inputs)
 # --------------------------------------------------------------------------
+
+def stub_vision_frontend(gen, cfg, batch, total_seq):
+    """Vision-patch embeddings and M-RoPE 3-stream positions (Qwen2-VL).
+
+    Returns ``(embeds (batch, n, d), positions3 (3, batch, total_seq))``
+    with n = ``cfg.num_frontend_tokens``: the embeddings N(0, 1) * 0.02
+    in the model dtype, drawn from ``gen`` on its device; the positions
+    int32 on the same device, JAX's integers: the patches on a square
+    grid (t = 0, h = i // side, w = i % side), the text tokens at equal
+    (t, h, w) ids continuing after the grid, a faithful simplification
+    of dynamic-resolution M-RoPE.  JAX's draw cannot be reproduced, so
+    the tests carry JAX's embeddings across as numpy."""
+    n = cfg.num_frontend_tokens
+    emb = torch.randn((batch, n, cfg.d_model), generator=gen,
+                      device=gen.device) * 0.02
+    side = max(1, int(np.sqrt(n)))
+    t = np.zeros(n, np.int32)
+    h = (np.arange(n) // side).astype(np.int32)
+    w = (np.arange(n) % side).astype(np.int32)
+    text = np.arange(total_seq - n, dtype=np.int32) + h.max() + 1
+    pos3 = np.stack([np.concatenate([t, text]),
+                     np.concatenate([h, text]),
+                     np.concatenate([w, text])])
+    pos3 = np.broadcast_to(pos3[:, None, :], (3, batch, total_seq))
+    return (emb.to(torch_dtype(cfg.dtype)),
+            torch.tensor(pos3, device=gen.device))
+
 
 def stub_audio_frontend(gen, cfg, batch, n_frames):
     """Mel+conv frontend stub: precomputed frame embeddings (batch,

@@ -54,13 +54,14 @@ def init_lm(gen, cfg, device, dtype) -> LM:
 
 
 def embed_tokens(params: LM, cfg, tokens, frontend_embeds=None):
-    """tokens: (B, S) int -> (B, S, d).  Frontend embeddings (vision
-    patches) arrive with the Qwen2-VL slice; Whisper's audio frames enter
-    through :mod:`.encdec`."""
+    """tokens: (B, S_txt) int -> (B, S, d); frontend embeddings (B,
+    n_front, d) (Qwen2-VL's vision patches, already projected by the stub
+    frontend) are cast to the model dtype and prepended when present.
+    Whisper's audio frames enter through :mod:`.encdec`."""
+    x = params.embed[tokens]
     if frontend_embeds is not None:
-        raise NotImplementedError(
-            "frontend embeddings arrive with the Qwen2-VL slice")
-    return params.embed[tokens]
+        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def forward_lm(params: LM, cfg, tokens, frontend_embeds=None,
@@ -73,16 +74,15 @@ def forward_lm(params: LM, cfg, tokens, frontend_embeds=None,
     versions on CPU tensors; a Mamba layer needs S to be a multiple of
     its chunk).  The aux loss is the sum of the MoE layers' load-balance
     losses (0.0 without MoE layers), as in JAX.  Every layer is
-    rematerialised while gradients are on."""
-    if positions3 is not None:
-        raise NotImplementedError(
-            "3-stream (M-RoPE) positions arrive with the Qwen2-VL slice")
+    rematerialised while gradients are on.  ``frontend_embeds`` are
+    prepended to the tokens' embeddings; ``positions3`` (3, B, S) with S
+    counting them drive M-RoPE (Qwen2-VL), which needs them."""
     x = embed_tokens(params, cfg, tokens, frontend_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux_total = 0.0
     for layer in params.layers:
-        x, aux = remat(apply_block, layer, cfg, x, positions, window,
-                       moe_impl)
+        x, aux = remat(apply_block, layer, cfg, x, positions, positions3,
+                       window, moe_impl)
         aux_total = aux_total + aux
     return norm(params.final_norm, x), aux_total
 
@@ -90,9 +90,12 @@ def forward_lm(params: LM, cfg, tokens, frontend_embeds=None,
 def lm_loss(params: LM, cfg, tokens, labels, frontend_embeds=None,
             positions3=None, moe_impl="ragged"):
     """Mean cross-entropy (+ MoE aux), with remat.  labels = -1 entries
-    are masked.  Returns (loss + aux, {"ce": loss, "aux": aux})."""
+    are masked; the frontend positions carry no loss, so labels are (B,
+    S_txt).  Returns (loss + aux, {"ce": loss, "aux": aux})."""
     hidden, aux = forward_lm(params, cfg, tokens, frontend_embeds,
                              positions3, moe_impl=moe_impl)
+    if frontend_embeds is not None:
+        hidden = hidden[:, frontend_embeds.shape[1]:, :]
     loss = cross_entropy(lm_logits(params, cfg, hidden), labels)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
     return loss + aux, {"ce": loss, "aux": aux}
@@ -126,13 +129,15 @@ def init_paged_caches(cfg, batch, num_blocks, block_size, dtype, device):
 
 
 def decode_lm(params: LM, cfg, caches, tokens, cache_len, active=None,
-              block_tables=None, moe_impl="ragged"):
+              block_tables=None, moe_impl="ragged", positions3=None):
     """One decode step.  tokens: (B, 1) -> (logits (B, V), caches).
 
     ``cache_len`` is a scalar (every row at the same position) or (B,)
     int32 per-row positions; ``active`` (B,) bool gates cache writes;
     ``block_tables`` (B, blocks_per_seq) int32 must be passed with the
-    caches of :func:`init_paged_caches` and routes every layer's pool.
+    caches of :func:`init_paged_caches` and routes every layer's pool;
+    ``positions3`` (3, B, 1) drive M-RoPE (left out, every stream is at
+    ``cache_len``, as in JAX).
 
     Returns a new list: an attention layer's entry is its cache, updated
     in place; a Mamba layer's is a new dict of new tensors, so the list
@@ -142,7 +147,7 @@ def decode_lm(params: LM, cfg, caches, tokens, cache_len, active=None,
     new = []
     for layer, cache in zip(params.layers, caches):
         x, cache = decode_block(layer, cfg, x, cache, cache_len, active,
-                                block_tables, moe_impl)
+                                block_tables, moe_impl, positions3)
         new.append(cache)
     hidden = norm(params.final_norm, x)
     return logits_last_token(params, cfg, hidden), new

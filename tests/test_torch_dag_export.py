@@ -1,20 +1,24 @@
 """The port's model -> DAG exporter against the JAX exporter.
 
-``stablelm-3b`` reduced (2 layers, d_model 256; the decoder graph) and
+``stablelm-3b`` reduced (2 layers, d_model 256; the decoder graph),
 ``whisper-tiny`` reduced (2 encoder layers, d_model 256; the encoder
-graph): the JAX model's params are bridged into the port's ``LM`` /
-``EncDec`` (``models/bridge.py``, fp32), both packages export the graph
-at batch 1, seq 16, and the graphs must agree node by node (names, op
-classes, flops, supported flags) and in their outputs (logits; the
-encoder's final hidden states).  Tolerance rtol = atol = 2e-5: the same
-fp32 arithmetic in other summation orders (measured max abs difference
-1.4e-6 on stablelm logits of magnitude 1.2, on the CPU).  Whisper's
-graph is held to JAX's graph, not to ``encode``: JAX's encoder graph
-reuses the decoder's attention chains (RoPE node, causal mask), which
-the model's bidirectional encoder does not have.  The port's graph then
-runs through the §3 planner and every executor mode, bit-identical to
-its own oracle: these DAGs have no pure-matmul group, so no mode reaches
-the grouped kernel.
+graph) and ``qwen2-vl-2b`` reduced (GQA 4/2, QKV biases, tied
+embeddings, M-RoPE sections; the decoder graph): the JAX model's params
+are bridged into the port's ``LM`` / ``EncDec`` (``models/bridge.py``,
+fp32), both packages export the graph at batch 1, seq 16, and the
+graphs must agree node by node (names, op classes, flops, supported
+flags) and in their outputs (logits; the encoder's final hidden
+states).  Tolerance rtol = atol = 2e-5: the same fp32 arithmetic in
+other summation orders (measured max abs difference 1.4e-6 on stablelm
+logits of magnitude 1.2, on the CPU).  Whisper's graph is held to JAX's
+graph, not to ``encode``: JAX's encoder graph reuses the decoder's
+attention chains (RoPE node, causal mask), which the model's
+bidirectional encoder does not have.  Qwen2-VL's graph is held to JAX's
+graph too, not to ``forward_lm``: JAX's exporter builds it from tokens
+only, with plain RoPE by position, no QKV bias and no frontend.  The
+port's graph then runs through the §3 planner and every executor mode,
+bit-identical to its own oracle: these DAGs have no pure-matmul group,
+so no mode reaches the grouped kernel.
 """
 
 from types import SimpleNamespace
@@ -35,7 +39,8 @@ CFG = ParallaxConfig(budget=1 << 30)
 ARCH, BATCH, SEQ = "stablelm-3b", 1, 16
 
 
-@pytest.fixture(scope="module", params=[ARCH, "whisper-tiny"])
+@pytest.fixture(scope="module",
+                params=[ARCH, "whisper-tiny", "qwen2-vl-2b"])
 def pair(request):
     """(JAX graph, JAX inputs, port graph, port inputs) on one set of
     weights; ``width`` is the output's last dimension."""

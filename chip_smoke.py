@@ -309,6 +309,34 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     launch counts print on a line of their own before the ``kernels``
     line.
 
+34.-36. the distributed layer (after 33, before 23): 34. chunked
+    attention at stablelm-3b's widths (B=1, H=K=32, D=80, S=4096, causal,
+    bf16): ``attend_chunked`` (chunks 512/1024, plain torch on the card)
+    and the ``flash_attention`` kernel, each normwise within 5e-3 of the
+    plain version in fp32 on the same bf16 inputs, both timed beside one
+    SDPA ``is_causal`` call on the same inputs; with
+    ``runtime_flags.chunked_attention`` on, ``self_attention`` at full
+    width still launches the kernel once (counted) and equals the call
+    with the flag off bit for bit; 35. ``moe_ep`` at dbrx-132b's widths
+    (d=6144, f=10752, E=16, top-4, one MoE layer, bf16) on a (1, 1) mesh
+    over a one-rank NCCL group: the replicated regime at T=4 against
+    ``moe_ragged`` (routing equal, outputs within 2e-2) and the a2a
+    regime at T=2048 against the same call on the plain GEMM, 3
+    ``branch_matmul`` launches a call (its own counter), each timed
+    beside the same call on the plain GEMM and ``moe_ragged``; 36. the
+    dry-run (``repro_torch.launch.dryrun``, fake tensors, nothing
+    allocated) in child processes that start after phase 35's timing,
+    so no child competes with the timed host work: dbrx-132b ``decode_32k`` (through ``moe_ep``),
+    jamba-v0.1-52b ``long_500k`` and stablelm-3b ``train_4k`` on the
+    16x16 mesh, per-device GiB against the card's 80 GB, the three
+    roofline terms (modelled from the data sheet) and collective bytes by
+    op; then calibration: stablelm-3b ``prefill_fn`` at B=1, S=4096 with
+    the chunked flag on, dry-run on a (1, 1) fake mesh and run for real on
+    the card: the predicted argument bytes must equal the bytes of the
+    inputs on the card; the predicted peak is printed beside
+    ``torch.cuda.max_memory_allocated()``.  Their launch counts print on
+    a "distributed launches per call" line before the ``kernels`` line.
+
 dbrx-132b and kimi-k2 are never resident together, nor beside another
 full-width model: each is freed before the next is built.
 
@@ -3974,6 +4002,298 @@ def qwen_phases(pa, da, fa, ss, bm, device):
 
 
 # --------------------------------------------------------------------------
+# phases 34-36: the distributed layer (slice 10)
+# --------------------------------------------------------------------------
+
+CHUNK_ATT = dict(B=1, H=32, D=80, S=4096, chunk_q=512, chunk_k=1024)
+EP_CASES = ((4, "replicated"), (2048, "a2a"))   # dbrx-132b's MoE layer
+#: the dry-run cases on the 16x16 mesh, each in a child process
+DRYRUN_CASES = (("dbrx-132b", "decode_32k"), ("jamba-v0.1-52b", "long_500k"),
+                ("stablelm-3b", "train_4k"))
+CALIBRATE_S = 4096                 # stablelm-3b prefill_fn, B=1
+CARD_GB = 80e9
+
+
+def dryrun_child(argv) -> int:
+    """``chip_smoke.py --dryrun arch shape``: one case of the dry-run on
+    the production mesh; ``--dryrun calibrate``: stablelm-3b
+    ``prefill_fn`` at B=1, S=CALIBRATE_S with the chunked flag on, on a
+    (1, 1) fake mesh.  Prints the record as JSON on the last line.  No
+    card: fake tensors only."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    torch.set_num_threads(2)
+    from repro_torch.launch import dryrun
+
+    if argv[0] != "calibrate":
+        rec = dryrun.run_case(argv[0], argv[1], save=False)
+        print(json.dumps(rec))
+        return 0 if rec["status"] == "ok" else 1
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch.mesh import make_fake_mesh
+    from repro_torch.models import runtime_flags
+
+    mesh = make_fake_mesh((1, 1), ("data", "model"))
+    shape = InputShape("prefill_4k", CALIBRATE_S, 1, "prefill")
+    mode = dryrun.shared_fake_mode()
+    runtime_flags.chunked_attention = True
+    fn, args = dryrun.plan_entry(get_config("stablelm-3b"), shape, mesh,
+                                 mode)
+    trace, arg_bytes, out_bytes, seconds = dryrun.measure(
+        fn, args, mesh, mode, train=False)
+    print(json.dumps({"argument_size_bytes": arg_bytes,
+                      "output_size_bytes": out_bytes,
+                      "temp_size_bytes": trace.peak_bytes,
+                      "flops": trace.flops, "seconds": seconds}))
+    return 0
+
+
+def start_dryruns():
+    """The dry-run children (no card: CUDA hidden from them)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    jobs = {}
+    for case in DRYRUN_CASES + (("calibrate",),):
+        jobs[case] = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dryrun", *case],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env)
+    return jobs
+
+
+def finish_dryrun(job, label):
+    out, err = job.communicate(timeout=600)
+    if job.returncode != 0:
+        raise AssertionError(f"dry-run {label} failed: {err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def chunked_attention_phase(fa, device):
+    """Phase 34.  Returns the ``flash_attention`` launches of the flagged
+    ``self_attention`` call."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import runtime_flags
+    from repro_torch.models.attention import (Attention, attend_chunked,
+                                              self_attention)
+
+    c = CHUNK_ATT
+    gen = torch.Generator(device=device).manual_seed(34)
+    q, k, v = (torch.randn((c["B"], c["S"], c["H"], c["D"]), generator=gen,
+                           device=device, dtype=torch.bfloat16)
+               for _ in range(3))
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+
+    def chunked():
+        return attend_chunked(q, k, v, causal=True, chunk_q=c["chunk_q"],
+                              chunk_k=c["chunk_k"])
+
+    def kernel():
+        return fa.attend_bshd(q, k, v, causal=True)
+
+    with torch.no_grad():
+        got = {"attend_chunked": chunked(), "flash_attention": kernel()}
+        want = fa.flash_attention_plain(
+            *(t.float().transpose(1, 2) for t in (q, k, v)),
+            causal=True).transpose(1, 2)
+        for name, out in got.items():
+            rel = normwise(out, want)
+            log(f"chunked attention: {name} (B={c['B']}, H=K={c['H']}, "
+                f"D={c['D']}, S={c['S']}, causal, bf16) normwise "
+                f"{rel:.3e} against the plain version in fp32 on the same "
+                f"bf16 inputs (tol {BF16_NORMWISE})")
+            if not rel <= BF16_NORMWISE:
+                raise AssertionError(f"{name} off the fp32 evaluation")
+        del want, got
+        bound = flash_bound(q.transpose(1, 2), k.transpose(1, 2), True, 0)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        t_chunk = median_ms(chunked, flush, 10)
+        t_kernel = median_ms(kernel, flush, 10)
+        t_sdpa = median_ms(lambda: sdpa_flash(qh, kh, vh, True, 0), flush,
+                           10)
+        del qh, kh, vh
+        log(f"chunked attention: attend_chunked {t_chunk:.4f} ms, "
+            f"flash_attention kernel {t_kernel:.4f} ms, SDPA is_causal "
+            f"(B, H, S, D) {t_sdpa:.4f} ms, bound {bound[0]:.5f} ms "
+            f"({bound[1]})")
+
+        cfg = get_config("stablelm-3b")
+        attn = Attention(cfg, gen, device, torch.bfloat16)
+        x = torch.randn((c["B"], c["S"], cfg.d_model), generator=gen,
+                        device=device, dtype=torch.bfloat16)
+        pos = torch.arange(c["S"], device=device)[None, :]
+        off = self_attention(attn, cfg, x, pos)
+        saved = (runtime_flags.chunk_q, runtime_flags.chunk_k)
+        try:
+            runtime_flags.chunked_attention = True
+            runtime_flags.chunk_q, runtime_flags.chunk_k = \
+                c["chunk_q"], c["chunk_k"]
+            fa.reset_launches()
+            on = self_attention(attn, cfg, x, pos)
+            torch.cuda.synchronize()
+            launched = fa.launches["flash_attention"]
+        finally:
+            runtime_flags.chunked_attention = False
+            runtime_flags.chunk_q, runtime_flags.chunk_k = saved
+    log(f"chunked attention: self_attention at stablelm-3b's width with "
+        f"the chunked flag on: {launched} flash_attention launch, "
+        f"{'bit-identical' if torch.equal(on, off) else 'DIFFERENT'} to "
+        f"the flag off")
+    if launched != 1 or not torch.equal(on, off):
+        raise AssertionError("the chunked flag moved the card off the "
+                             "flash_attention kernel")
+    return launched
+
+
+def moe_ep_phase(bm, device):
+    """Phase 35.  Returns (branch_matmul launches a call, max abs err)."""
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg = get_config("dbrx-132b")
+    mesh = make_host_mesh()                      # NCCL, (1, 1) on one card
+    gen = torch.Generator(device=device).manual_seed(35)
+    layer = moe_mod.MoE(cfg, gen, device, torch.bfloat16)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    worst, per_call = 0.0, set()
+    for T, regime in EP_CASES:
+        x = torch.randn((T, cfg.d_model), generator=gen, device=device,
+                        dtype=torch.bfloat16)
+        with torch.no_grad():
+            stats = {}
+            bm.reset_launches()
+            y, aux = moe_mod.moe_ep(layer, cfg, x, mesh, stats=stats)
+            torch.cuda.synchronize()
+            n = bm.launches["branch_matmul"]
+            per_call.add(n)
+            if regime == "replicated":
+                y_ref, aux_ref = moe_mod.moe_ragged(layer, cfg, x)
+                against = "moe_ragged"
+            else:
+                with plain_experts(bm):
+                    y_ref, aux_ref = moe_mod.moe_ep(layer, cfg, x, mesh)
+                against = "moe_ep on the plain GEMM"
+            e = (y.float() - y_ref.float()).abs().max().item()
+            t_ep = median_ms(lambda: moe_mod.moe_ep(layer, cfg, x, mesh),
+                             flush, MOE_KERNEL_ITERS)
+            t_rag = median_ms(lambda: moe_mod.moe_ragged(layer, cfg, x),
+                              flush, MOE_KERNEL_ITERS)
+
+            def ep_plain():
+                with plain_experts(bm):
+                    return moe_mod.moe_ep(layer, cfg, x, mesh)
+            t_plain = median_ms(ep_plain, flush, MOE_KERNEL_ITERS)
+        ok = (stats["regime"] == regime and n == 3
+              and torch.allclose(y.float(), y_ref.float(), rtol=TOL[x.dtype],
+                                 atol=TOL[x.dtype])
+              and torch.equal(aux, aux_ref))
+        log(f"moe_ep: dbrx-132b MoE layer, T={T}, {stats['regime']} "
+            f"regime on a (1, 1) NCCL mesh: {n} branch_matmul launches, "
+            f"{int(stats['dropped'])} pairs dropped, against {against} "
+            f"max abs {e:.3e} (tol {TOL[x.dtype]}), normwise "
+            f"{normwise(y, y_ref):.3e}, aux {'equal' if torch.equal(aux, aux_ref) else 'DIFFERS'}; "
+            f"{t_ep:.4f} ms a call, on the plain GEMM {t_plain:.4f} ms, "
+            f"moe_ragged {t_rag:.4f} ms")
+        if not ok:
+            raise AssertionError(f"moe_ep {regime} regime off its check")
+        worst = max(worst, e)
+    del layer
+    free()
+    torch.distributed.destroy_process_group()
+    return per_call.pop(), worst
+
+
+def dryrun_summary(label, rec):
+    rl, mem = rec["roofline"], rec["memory_analysis"]
+    coll = ", ".join(f"{k} {v / 2**30:.3f} GiB" for k, v in
+                     sorted(rec["collective_bytes"].items()))
+    log(f"dry-run {label} ({rec['mesh']}{'/' + rec['variant'] if rec['variant'] else ''}): "
+        f"{rec['per_device_gb']:.3f} GiB a device of the card's "
+        f"{CARD_GB / 2**30:.1f} GiB (arguments "
+        f"{mem['argument_size_bytes'] / 2**30:.3f}, temp "
+        f"{mem['temp_size_bytes'] / 2**30:.3f}); roofline from the data "
+        f"sheet: compute {rl['compute_s']:.4f} s, memory "
+        f"{rl['memory_s']:.4f} s, collective {rl['collective_s']:.4f} s "
+        f"({rl['dominant']}); collectives {coll}; dispatch "
+        f"{rec['lower_s']} s")
+    if rec["per_device_gb"] * 2**30 > CARD_GB:
+        log(f"dry-run {label}: does not fit one card's 80 GB")
+
+
+def calibrate_phase(pred, fa, device):
+    """Phase 36's calibration: the dry-run's prediction against the same
+    step on the card.  Returns the flash_attention launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, runtime_flags
+
+    free()
+    cfg = get_config("stablelm-3b")
+    m0 = torch.cuda.memory_allocated()
+    api = build_model(cfg, device=device)
+    params = api.init(torch.Generator(device=device).manual_seed(0))
+    tokens = torch.tensor(np.random.default_rng(36).integers(
+        0, cfg.vocab_size, (1, CALIBRATE_S)), dtype=torch.int32,
+        device=device)
+    inputs = sum(p.numel() * p.element_size() for p in params.parameters())
+    inputs += tokens.numel() * tokens.element_size()
+    held = torch.cuda.memory_allocated() - m0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        runtime_flags.chunked_attention = True
+        fa.reset_launches()
+        with torch.no_grad():
+            logits = api.prefill_fn(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    finally:
+        runtime_flags.chunked_attention = False
+    launched = fa.launches["flash_attention"]
+    peak = torch.cuda.max_memory_allocated() - m0
+    predicted = pred["argument_size_bytes"] + pred["temp_size_bytes"]
+    log(f"calibration: stablelm-3b prefill_fn B=1, S={CALIBRATE_S}, "
+        f"chunked flag on: predicted argument bytes "
+        f"{pred['argument_size_bytes']}, inputs on the card {inputs} "
+        f"({held} held by the allocator); predicted peak "
+        f"{predicted / 2**30:.3f} GiB (temp "
+        f"{pred['temp_size_bytes'] / 2**30:.3f}), measured "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB, ratio "
+        f"{predicted / peak:.3f}; {launched} flash_attention launches, "
+        f"logits finite {bool(torch.isfinite(logits).all())}; the dry-run "
+        f"took {pred['seconds']:.1f} s")
+    if pred["argument_size_bytes"] != inputs:
+        raise AssertionError("the dry-run's argument bytes are not the "
+                             "inputs' on the card")
+    if launched != cfg.num_layers or not torch.isfinite(logits).all():
+        raise AssertionError("calibration prefill off its kernel path")
+    del api, params, logits
+    free()
+    return launched
+
+
+def distributed_phases(fa, bm, device):
+    """Phases 34-36; returns their launch counts.  The dry-run children
+    start after the timed phases 34 and 35, whose host-bound calls they
+    would otherwise compete with for the CPU."""
+    t_phase = time.perf_counter()
+    launches = {"self_attention flash_attention (chunked flag)":
+                chunked_attention_phase(fa, device)}
+    launches["moe_ep branch_matmul"], err = moe_ep_phase(bm, device)
+    jobs = start_dryruns()
+    try:
+        for case in DRYRUN_CASES:
+            dryrun_summary(" x ".join(case), finish_dryrun(jobs[case],
+                                                           case))
+        pred = finish_dryrun(jobs[("calibrate",)], "calibrate")
+    finally:
+        for job in jobs.values():
+            if job.poll() is None:
+                job.kill()
+                job.wait()
+    launches["calibration prefill_fn flash_attention"] = calibrate_phase(
+        pred, fa, device)
+    log(f"distributed phases: {time.perf_counter() - t_phase:.1f} s")
+    return launches, err
+
+
+# --------------------------------------------------------------------------
 # phases 23-27: training (slice 8)
 # --------------------------------------------------------------------------
 
@@ -4536,6 +4856,8 @@ def count_calls(api):
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--dryrun"]:
+        return dryrun_child(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4634,6 +4956,8 @@ def main() -> int:
             f"{t['bound'][0]:.6f} ms ({t['bound'][1]})")
     gc.collect()
     torch.cuda.empty_cache()
+    dist_launches, dist_err = distributed_phases(fa, bm, device)
+    err["branch_matmul"] = max(err["branch_matmul"], dist_err)
     grad_rows, grad_launches = training_phases(fa, ss, bm, device)
 
     rows = []
@@ -4656,6 +4980,7 @@ def main() -> int:
                      "library_ms": t["library_ms"], "fwd_ms": t["fwd_ms"]})
     print("whisper launches per call: " + json.dumps(whisper_launches))
     print("qwen2-vl launches per call: " + json.dumps(qwen_launches))
+    print("distributed launches per call: " + json.dumps(dist_launches))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,11 @@ channel)`` with mixer in {"attn", "mamba"} and channel in {"dense",
 copied as they are.  Every mixer and channel is ported, for the
 full-sequence forward (:func:`apply_block`) and the decode step on a
 dense or a paged cache (:func:`decode_block`), in any interleave.  An
-MoE channel runs ``moe_dense`` or ``moe_ragged`` as the caller's
-``moe_impl`` says (``models.model._moe_impl_for``, as in JAX).
+MoE channel runs ``moe_dense``, ``moe_ragged`` or, given a mesh,
+``moe_ep`` as the caller's ``moe_impl`` says
+(``models.model._moe_impl_for``, as in JAX).  Under an active mesh the
+residual stream is constrained at the block boundaries
+(``sharding.shard_batch_seq`` / ``shard_decode``), as in JAX.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from .attention import (Attention, decode_step_attention, init_kv_cache,
 from .common import Norm, norm
 from .mlp import MLP, mlp
 from .moe import MoE, moe_dense, moe_ep, moe_ragged
+from .sharding import shard_batch, shard_batch_seq, shard_decode
 from .ssm import Mamba, init_mamba_cache, mamba_block, mamba_decode_step
 
 
@@ -79,40 +83,43 @@ def init_block(gen, cfg, kind, device, dtype) -> Block:
     return Block(cfg, kind, gen, device, dtype)
 
 
-def _channel_mix(params: Block, cfg, x, moe_impl):
+def _channel_mix(params: Block, cfg, x, moe_impl, mesh=None):
     """x + channel mix -> (x, aux loss); an MoE channel flattens (B, S, d)
-    to (B*S, d) tokens for ``moe_impl`` ("dense", "ragged" or "ep")."""
+    to (B*S, d) tokens for ``moe_impl`` ("dense", "ragged", or "ep" over
+    ``mesh``; "ep" without a mesh runs "ragged", as in JAX)."""
     channel = params.kind[1]
     if channel == "none":
         return x, 0.0
-    h = norm(params.norm2, x)
+    h = shard_batch(norm(params.norm2, x))
     if channel == "dense":
-        return x + mlp(params.mlp, h), 0.0
+        return x + shard_batch_seq(mlp(params.mlp, h)), 0.0
     B, S, d = h.shape
     flat = h.reshape(B * S, d)
     if moe_impl == "dense":
         y, aux = moe_dense(params.moe, cfg, flat)
-    elif moe_impl == "ep":
-        y, aux = moe_ep(params.moe, cfg, flat)
+    elif moe_impl == "ep" and mesh is not None:
+        y, aux = moe_ep(params.moe, cfg, flat, mesh)
     else:
         y, aux = moe_ragged(params.moe, cfg, flat)
-    return x + y.reshape(B, S, d), aux
+    return x + shard_batch_seq(y.reshape(B, S, d)), aux
 
 
 def apply_block(params: Block, cfg, x, positions=None, positions3=None,
-                window=None, moe_impl="ragged"):
+                window=None, moe_impl="ragged", mesh=None):
     """Full-sequence (prefill) block.  x: (B, S, d) -> (x, aux loss);
-    ``positions3`` (3, B, S) drive M-RoPE in a Qwen2-VL config.
-
-    The JAX block also takes a mesh, for ``moe_ep``; the port has no
-    mesh yet (ROADMAP §1 item 7)."""
-    h = norm(params.norm1, x)
+    ``positions3`` (3, B, S) drive M-RoPE in a Qwen2-VL config; ``mesh``
+    goes to ``moe_ep``.  Under a mesh each branch's output is placed like
+    the residual stream before the add (JAX's XLA does it unasked), so
+    its gradient comes back in a layout the branch's matmuls take."""
+    h = shard_batch(norm(params.norm1, x))
     if params.kind[0] == "attn":
         y = self_attention(params.attn, cfg, h, positions, positions3,
                            causal=True, window=window)
     else:
         y = mamba_block(params.mamba, cfg, h)
-    return _channel_mix(params, cfg, x + y, moe_impl)
+    x = shard_batch_seq(x + shard_batch_seq(y))
+    x, aux = _channel_mix(params, cfg, x, moe_impl, mesh)
+    return shard_batch_seq(x), aux
 
 
 def init_block_cache(cfg, kind, batch, max_len, dtype, device, ring=False,
@@ -135,7 +142,8 @@ def init_paged_block_cache(cfg, kind, batch, num_blocks, block_size, dtype,
 
 
 def decode_block(params: Block, cfg, x, cache, cache_len, active=None,
-                 block_tables=None, moe_impl="ragged", positions3=None):
+                 block_tables=None, moe_impl="ragged", positions3=None,
+                 mesh=None):
     """Single-token decode block.  x: (B, 1, d).
 
     ``cache`` is a dense or a paged KV cache (see
@@ -149,7 +157,7 @@ def decode_block(params: Block, cfg, x, cache, cache_len, active=None,
     advances per row without a host round trip.  An MoE channel routes
     every row, active or not, as in JAX; its aux loss is dropped.
     ``positions3`` (3, B, 1) go to the attention mixer (M-RoPE; see
-    attention.decode_step_attention).
+    attention.decode_step_attention); ``mesh`` goes to ``moe_ep``.
     """
     h = norm(params.norm1, x)
     if params.kind[0] == "attn":
@@ -164,5 +172,6 @@ def decode_block(params: Block, cfg, x, cache, cache_len, active=None,
                 active.reshape((-1,) + (1,) * (t.ndim - 1)), t,
                 cache[name]) for name, t in new.items()}
         cache = new
-    x, _aux = _channel_mix(params, cfg, x + y, moe_impl)
-    return x, cache
+    x = shard_decode(x + y)
+    x, _aux = _channel_mix(params, cfg, x, moe_impl, mesh)
+    return shard_decode(x), cache

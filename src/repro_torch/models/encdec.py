@@ -33,11 +33,12 @@ from torch import nn
 from repro_torch.kernels.flash_attention import attend_bshd
 
 from .attention import (Attention, cross_attention, decode_step_attention,
-                        init_kv_cache, qkv_project)
+                        init_kv_cache, on_shards, qkv_project, split_heads)
 from .common import (Norm, embed_init, norm, param, remat,
                      sinusoidal_positions)
 from .mlp import MLP, mlp
-from .vocab import cross_entropy
+from .sharding import shard_batch, shard_batch_seq
+from .vocab import cross_entropy, embed_lookup
 
 #: rows of the learned decoder position table (JAX: ``dec_pos``)
 DEC_POS_ROWS = 4096
@@ -100,28 +101,30 @@ def encode(params: EncDec, cfg, frames):
     S = frames.shape[1]
     x = frames.to(dt) + _positions(S, cfg.d_model, frames.device).to(
         dt)[None]
+    x = shard_batch_seq(x)
     for blk in params.encoder:
-        x = x + _bidir_attention(blk.attn, cfg, norm(blk.norm1, x))
-        x = x + mlp(blk.mlp, norm(blk.norm2, x))
+        h = shard_batch(norm(blk.norm1, x))
+        x = x + shard_batch_seq(_bidir_attention(blk.attn, cfg, h))
+        h = shard_batch(norm(blk.norm2, x))
+        x = shard_batch_seq(x + shard_batch_seq(mlp(blk.mlp, h)))
     return norm(params.enc_final, x)
 
 
 def _bidir_attention(p: Attention, cfg, x):
     """Encoder self-attention: no positions (no RoPE), no mask."""
-    B, S, _ = x.shape
     q, k, v = qkv_project(p, cfg, x)
-    ctx = attend_bshd(q, k, v, causal=False)
-    return ctx.reshape(B, S, -1) @ p.wo
+    return on_shards(functools.partial(attend_bshd, causal=False), q, k,
+                     v) @ p.wo
 
 
 def cross_kv(p: Attention, cfg, enc_out):
     """One layer's cross-attention K/V (B, T, K, D) from the encoder
     output (computed once a request; no bias, as in JAX)."""
-    B, T, _ = enc_out.shape
     hd = cfg.resolved_head_dim()
     K = cfg.num_kv_heads
-    return ((enc_out @ p.wk).reshape(B, T, K, hd),
-            (enc_out @ p.wv).reshape(B, T, K, hd))
+    enc_out = shard_batch(enc_out)
+    return (split_heads(enc_out @ p.wk, K, hd),
+            split_heads(enc_out @ p.wv, K, hd))
 
 
 def _decoder_layer(blk: DecBlock, cfg, x, enc_out):
@@ -129,13 +132,15 @@ def _decoder_layer(blk: DecBlock, cfg, x, enc_out):
     self-attention with no RoPE (JAX's ``decode_train`` passes no
     positions), cross-attention over the layer's K/V of ``enc_out``
     (both through ``flash_attention``), the MLP."""
-    B, S, _ = x.shape
     p = blk.self_attn
-    q, k, v = qkv_project(p, cfg, norm(blk.norm1, x))
-    x = x + attend_bshd(q, k, v, causal=True).reshape(B, S, -1) @ p.wo
+    q, k, v = qkv_project(p, cfg, shard_batch(norm(blk.norm1, x)))
+    ctx = on_shards(functools.partial(attend_bshd, causal=True), q, k, v)
+    x = x + shard_batch_seq(ctx @ p.wo)
     ck, cv = cross_kv(blk.cross_attn, cfg, enc_out)
-    x = x + cross_attention(blk.cross_attn, cfg, norm(blk.norm_x, x), ck, cv)
-    return x + mlp(blk.mlp, norm(blk.norm2, x))
+    x = x + shard_batch_seq(cross_attention(
+        blk.cross_attn, cfg, shard_batch(norm(blk.norm_x, x)), ck, cv))
+    h = shard_batch(norm(blk.norm2, x))
+    return shard_batch_seq(x + shard_batch_seq(mlp(blk.mlp, h)))
 
 
 def decode_train(params: EncDec, cfg, tokens, enc_out):
@@ -144,7 +149,8 @@ def decode_train(params: EncDec, cfg, tokens, enc_out):
     ``jax.checkpoint`` of its scan body): two ``flash_attention``
     launches a layer, and two more in its recompute."""
     S = tokens.shape[1]
-    x = params.embed[tokens] + params.dec_pos[:S][None]
+    x = shard_batch_seq(embed_lookup(params.embed, tokens)
+                        + params.dec_pos[:S][None])
     for blk in params.decoder:
         x = remat(_decoder_layer, blk, cfg, x, enc_out)
     return norm(params.dec_final, x)
@@ -156,7 +162,7 @@ def encdec_loss(params: EncDec, cfg, frames, tokens, labels):
     rematerialised, as in JAX.  Returns (loss, {"ce": loss})."""
     enc = encode(params, cfg, frames)
     hidden = decode_train(params, cfg, tokens, enc)
-    loss = cross_entropy(hidden @ params.embed.t(), labels)
+    loss = cross_entropy(shard_batch(hidden) @ params.embed.t(), labels)
     return loss, {"ce": loss}
 
 
@@ -185,6 +191,29 @@ def init_dec_caches(cfg, batch, max_len, dtype, device, tile=16):
             "cross_k": torch.zeros(shape, dtype=dtype, device=device),
             "cross_v": torch.zeros(shape, dtype=dtype, device=device),
             "cross_pos": pos, "cross_len": lens}
+
+
+def place_caches(caches, like):
+    """Under an active mesh with a DTensor ``like`` (the frames), fresh
+    decoder caches as DTensors: each layer's self K/V with heads over
+    ``model`` and batch over the data axes (``sharding.shard_kv_cache``),
+    ``pos`` replicated; otherwise ``caches`` as they are."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from .sharding import active_mesh, shard_kv_cache
+
+    mesh = active_mesh()
+    if mesh is None or not isinstance(like, DTensor):
+        return caches
+
+    def rep(t):
+        return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+    caches = dict(caches)
+    caches["self"] = [dict(c, k=shard_kv_cache(rep(c["k"]), False),
+                           v=shard_kv_cache(rep(c["v"]), False),
+                           pos=rep(c["pos"])) for c in caches["self"]]
+    return caches
 
 
 def prefill_encdec(params: EncDec, cfg, frames, caches):
@@ -218,7 +247,8 @@ def decode_step_encdec(params: EncDec, cfg, caches, tokens, cache_len,
                           device=params.embed.device)
     # (B or 1, d): a gather, which reads no index back to the host
     pe = params.dec_pos.index_select(0, pos.reshape(-1).long())
-    x = params.embed[torch.as_tensor(tokens, device=pos.device)] \
+    x = embed_lookup(params.embed, torch.as_tensor(tokens,
+                                                   device=pos.device)) \
         + pe[:, None, :]
     for blk, self_cache, ck, cv in zip(params.decoder, caches["self"],
                                        caches["cross_k"], caches["cross_v"]):

@@ -10,6 +10,12 @@ Port of ``repro.models.model``::
     caches = api.init_paged_caches(batch, num_blocks, block_size)
     logits, caches = api.decode_fn(params, caches, batch)
 
+``api.input_specs(shape)`` returns fake-tensor stand-ins for the batch
+of a given ``InputShape`` (the dry-run's contract) and
+``api.batch_pspecs(shape)`` their partition specs, as JAX's do.
+``build_model(..., distributed=True, mesh=mesh)`` routes MoE layers to
+``moe_ep`` over ``mesh`` (JAX's ``_moe_impl_for``).
+
 ``build_model`` runs on ``cuda`` unless ``device="cpu"`` is passed, and
 raises without a card.  It serves the decoder family: ``arch_type``
 ``dense``; ``vlm`` (Qwen2-VL: M-RoPE over ``(3, B, S)`` positions and
@@ -46,8 +52,10 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.utils.sharding import P
 
 from . import encdec, transformer
+from .sharding import DP_AXES
 
 
 @dataclass
@@ -61,6 +69,10 @@ class ModelAPI:
     decode_fn: Callable            # (params, caches, batch) -> (logits, caches)
     # (batch, max_len, dtype, ring, tile) -> dense per-row caches
     init_caches: Callable
+    # (InputShape, fake_mode=None) -> dict[str, fake tensor]
+    input_specs: "Callable | None" = None
+    # (InputShape) -> dict[str, P]
+    batch_pspecs: "Callable | None" = None
     # (batch, num_blocks, block_size, dtype) -> physically paged caches;
     # None for families without a paged decode path (encoder-decoder)
     init_paged_caches: "Callable | None" = None
@@ -79,12 +91,31 @@ def _check_generator(gen, device):
         raise ValueError(f"generator on {gen.device}, model on {device}")
 
 
-def build_model(cfg, device=None, dtype=None) -> ModelAPI:
+def _stand_ins(fake_mode, shapes: dict) -> dict:
+    """{name: (shape, dtype)} -> fake tensors of ``fake_mode`` (a fresh
+    ``FakeTensorMode`` when None): JAX's ``ShapeDtypeStruct`` stand-ins."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with fake_mode or FakeTensorMode():
+        return {k: torch.empty(sh, dtype=dt) for k, (sh, dt) in
+                shapes.items()}
+
+
+def build_model(cfg, device=None, dtype=None, *, distributed=False,
+                mesh=None) -> ModelAPI:
+    """The model's API on ``device`` in ``dtype`` (default
+    ``cfg.dtype``).  ``distributed`` routes MoE layers to ``moe_ep`` over
+    ``mesh``.  JAX's ``long_context`` argument is left out: its build
+    never reads it (the long-context cache layout is the dry-run's
+    ``cache_pspecs``)."""
     device = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
     if cfg.is_encoder_decoder:
         return _build_encdec(cfg, device, dtype)
-    moe_impl = _moe_impl_for(cfg, distributed=False)
+    moe_impl = _moe_impl_for(cfg, distributed)
+    is_vlm = cfg.frontend == "vision_patches"
+    n_front = cfg.num_frontend_tokens if is_vlm else 0
+    idt = torch.int32
 
     def init(gen):
         _check_generator(gen, device)
@@ -99,20 +130,20 @@ def build_model(cfg, device=None, dtype=None) -> ModelAPI:
             params, cfg, torch.as_tensor(batch["tokens"], device=device),
             torch.as_tensor(batch["labels"], device=device),
             optional(batch, "frontend_embeds"), optional(batch, "positions3"),
-            moe_impl=moe_impl)
+            moe_impl=moe_impl, mesh=mesh)
 
     def prefill_fn(params, batch):
         return transformer.prefill_lm(
             params, cfg, torch.as_tensor(batch["tokens"], device=device),
             optional(batch, "frontend_embeds"), optional(batch, "positions3"),
-            moe_impl=moe_impl)
+            moe_impl=moe_impl, mesh=mesh)
 
     def decode_fn(params, caches, batch):
         return transformer.decode_lm(
             params, cfg, caches, batch["tokens"], batch["cache_len"],
             active=batch.get("active"),
             block_tables=batch.get("block_tables"), moe_impl=moe_impl,
-            positions3=batch.get("positions3"))
+            positions3=batch.get("positions3"), mesh=mesh)
 
     def init_caches(batch, max_len, cache_dtype=None, ring=False,
                     tile=16):
@@ -125,8 +156,41 @@ def build_model(cfg, device=None, dtype=None) -> ModelAPI:
             cfg, batch, num_blocks, block_size,
             torch_dtype(cache_dtype or dtype), device)
 
+    def input_specs(shape, fake_mode=None):
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "decode":      # one token against a seq_len cache
+            sp = {"tokens": ((B, 1), idt), "cache_len": ((), idt)}
+            if is_vlm:
+                sp["positions3"] = ((3, B, 1), idt)
+            return _stand_ins(fake_mode, sp)
+        txt = S - n_front
+        sp = {"tokens": ((B, txt), idt)}
+        if shape.kind == "train":
+            sp["labels"] = ((B, txt), idt)
+        if is_vlm:
+            sp["frontend_embeds"] = ((B, n_front, cfg.d_model), dtype)
+            sp["positions3"] = ((3, B, S), idt)
+        return _stand_ins(fake_mode, sp)
+
+    def batch_pspecs(shape):
+        dp = DP_AXES
+        if shape.kind == "decode":
+            rows = dp if shape.global_batch > 1 else None
+            sp = {"tokens": P(rows, None), "cache_len": P()}
+            if is_vlm:
+                sp["positions3"] = P(None, rows, None)
+            return sp
+        sp = {"tokens": P(dp, None)}
+        if shape.kind == "train":
+            sp["labels"] = P(dp, None)
+        if is_vlm:
+            sp["frontend_embeds"] = P(dp, None, None)
+            sp["positions3"] = P(None, dp, None)
+        return sp
+
     return ModelAPI(cfg, device, dtype, init, loss_fn, prefill_fn,
-                    decode_fn, init_caches, init_paged_caches)
+                    decode_fn, init_caches, input_specs, batch_pspecs,
+                    init_paged_caches)
 
 
 # --------------------------------------------------------------------------
@@ -156,8 +220,8 @@ def _build_encdec(cfg, device, dtype) -> ModelAPI:
     def prefill_fn(params, batch):
         frames = torch.as_tensor(batch["frames"], device=device)
         tokens = torch.as_tensor(batch["tokens"], device=device)
-        caches = encdec.init_dec_caches(cfg, frames.shape[0], DEC_LEN,
-                                        dtype, device)
+        caches = encdec.place_caches(encdec.init_dec_caches(
+            cfg, frames.shape[0], DEC_LEN, dtype, device), frames)
         _, caches = encdec.prefill_encdec(params, cfg, frames, caches)
         logits, _ = encdec.decode_step_encdec(params, cfg, caches,
                                               tokens[:, :1], 0)
@@ -175,8 +239,34 @@ def _build_encdec(cfg, device, dtype) -> ModelAPI:
             cfg, batch, max_len, torch_dtype(cache_dtype or dtype), device,
             tile)
 
+    idt = torch.int32
+
+    def input_specs(shape, fake_mode=None):
+        # the encoder carries the assigned seq_len (frame embeddings from
+        # the stub frontend); the decoder uses Whisper's native context
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind == "train":
+            sp = {"frames": ((B, S, cfg.d_model), dtype),
+                  "tokens": ((B, DEC_LEN), idt),
+                  "labels": ((B, DEC_LEN), idt)}
+        elif shape.kind == "prefill":
+            sp = {"frames": ((B, S, cfg.d_model), dtype),
+                  "tokens": ((B, 1), idt)}
+        else:
+            sp = {"tokens": ((B, 1), idt), "cache_len": ((), idt)}
+        return _stand_ins(fake_mode, sp)
+
+    def batch_pspecs(shape):
+        dp = DP_AXES
+        if shape.kind == "train":
+            return {"frames": P(dp, None, None), "tokens": P(dp, None),
+                    "labels": P(dp, None)}
+        if shape.kind == "prefill":
+            return {"frames": P(dp, None, None), "tokens": P(dp, None)}
+        return {"tokens": P(dp, None), "cache_len": P()}
+
     return ModelAPI(cfg, device, dtype, init, loss_fn, prefill_fn,
-                    decode_fn, init_caches)
+                    decode_fn, init_caches, input_specs, batch_pspecs)
 
 
 # --------------------------------------------------------------------------

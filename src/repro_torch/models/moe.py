@@ -1,7 +1,7 @@
 """Mixture-of-Experts: routing, dropless expert compute on the grouped
 kernel, and the dense oracle.
 
-Port of ``repro.models.moe``.  Two execution paths share one parameter
+Port of ``repro.models.moe``.  Three execution paths share one parameter
 layout (:class:`MoE`):
 
 * :func:`moe_dense` — every expert processes every token, gate-weighted
@@ -19,8 +19,12 @@ layout (:class:`MoE`):
   The E experts are the β-balanced parallel branches of §3.1.  Equal to
   JAX's up to summation order.
 
-Expert parallelism (JAX ``moe_ep``, ``shard_map`` over a mesh) waits for
-the mesh tools (ROADMAP §1 item 7).
+* :func:`moe_ep` — expert parallelism over a ``DeviceMesh``: experts
+  sharded over the ``model`` axis, each rank computing on its local
+  shards (JAX's ``shard_map``), tokens exchanged by capacity-based
+  all-to-all (drop-on-overflow) or replicated with the outputs
+  all-reduced (dropless).  Its local expert FFN is the same three
+  ``branch_matmul`` launches.
 
 Determinism: the pairs are ordered by a stable sort on the expert id
 alone, the buckets are filled and emptied by gathers (no scatter-add),
@@ -41,6 +45,8 @@ master at use, and a bf16 router would move near-tied routing decisions.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -49,6 +55,7 @@ from repro_torch.kernels.branch_matmul import branch_matmul
 
 from .common import dense_init, param
 from .mlp import MLP, mlp
+from .sharding import from_local, psum, to_local
 
 #: the dropless capacity is T up to this many tokens (a decode step of up
 #: to 32 rows never reads back to the host), else the largest group
@@ -88,7 +95,8 @@ def route(params: MoE, cfg, x):
 class Buckets:
     """The (token, choice) pairs of a routing, laid out by expert.
 
-    ``src`` (E, cap): the token whose row fills each bucket slot;
+    ``src`` (E, cap): the token whose row fills each bucket slot
+    (``pair``: its flat pair index ``t * k + j``);
     ``valid`` (E, cap): the slot holds a pair; ``pos`` (T, k): each
     pair's slot in its expert's bucket, in the order the pairs appear
     token by token (JAX's cumsum rule); ``keep`` (T, k): ``pos < cap``
@@ -112,7 +120,8 @@ class Buckets:
         slot = torch.arange(cap, device=idx.device)
         self.valid = slot < self.counts[:, None]
         first = (starts[:, None] + slot).clamp(max=T * k - 1)
-        self.src = order[first] // k
+        self.pair = order[first]                       # flat (t * k + j)
+        self.src = self.pair // k
         rank = torch.argsort(order)                    # the inverse order
         self.pos = (rank - starts[flat]).reshape(T, k)
         self.keep = self.pos < cap
@@ -190,9 +199,230 @@ def moe_dense(params: MoE, cfg, x):
     return y, aux
 
 
-def moe_ep(params: MoE, cfg, x, mesh=None, axis: str = "model"):
-    """Expert parallelism over a device mesh: waits for the mesh tools
-    (ROADMAP §1 item 7)."""
-    raise NotImplementedError(
-        "moe_ep (expert parallelism over a mesh) waits for the mesh tools, "
-        "ROADMAP §1 item 7")
+# --------------------------------------------------------------------------
+# Expert parallelism (JAX's shard_map over the `model` axis)
+# --------------------------------------------------------------------------
+
+def moe_ep(params: MoE, cfg, x, mesh, axis: str = "model", stats=None):
+    """Expert-parallel MoE dispatcher.  x: (T, d) global tokens.
+
+    Two regimes (both shard experts over ``axis``), JAX's:
+
+    * **a2a** (train/prefill, many tokens): tokens are split over every
+      mesh axis and travel to their expert's shard via capacity-based
+      all-to-all — Switch-style, minimal redundant compute.
+    * **replicated** (decode, few tokens): tokens are replicated over the
+      expert axis; each shard computes only its local experts' share and
+      the outputs are summed over ``axis`` — no dispatch buffers,
+      dropless, one (T, d) all-reduce.
+
+    The regime is chosen by token divisibility, as in JAX.  ``params``
+    and ``x`` are DTensors on ``mesh`` or plain tensors, taken as
+    replicated; the result is of ``x``'s kind (a plain ``x`` gets the
+    whole ``y``).  Each rank runs JAX's ``local_moe`` on its local
+    shards; the collectives are ``torch.distributed._functional_collectives``
+    on the groups of the mesh's dims; the local expert FFN is
+    :func:`expert_ffn`, three ``branch_matmul`` launches.  ``stats``, a
+    dict, receives the ``regime`` and this rank's ``dropped`` (token,
+    choice) pairs.
+
+    One difference from JAX, in the a2a regime: JAX writes the metadata
+    of every dropped pair (-1) to send slot (0, 0) with a scatter-set,
+    so when a rank drops a pair after the one it keeps in that slot, JAX
+    loses that kept pair too.  The port drops only the pairs over
+    capacity (Switch semantics); the outputs differ at exactly those
+    tokens (``tests/test_torch_distributed.py``).
+    """
+    from repro_torch.utils.sharding import axis_sizes
+
+    sizes = axis_sizes(mesh)
+    n_shards = sizes[axis]
+    data_axes = tuple(a for a in mesh.mesh_dim_names if a != axis)
+    n_data = 1
+    for a in data_axes:
+        n_data *= sizes[a]
+    T = x.shape[0]
+    if T % (n_shards * n_data) == 0 and T // (n_shards * n_data) >= 8:
+        fn = _moe_ep_a2a
+    else:
+        fn = _moe_ep_replicated
+    if stats is not None:
+        stats["regime"] = "a2a" if fn is _moe_ep_a2a else "replicated"
+    y, aux = fn(params, cfg, x, mesh, axis, data_axes, stats)
+    if params.shared is not None:
+        y = y + mlp(params.shared, x)
+    return y, aux
+
+
+def _from_local(y, spec, mesh, like):
+    """The output side of ``shard_map``: the local results placed as
+    ``like`` (the tokens) was — for the a2a regime's tokens split over
+    every axis, a gather over the axes ``like`` did not split, since
+    DTensor misplaces the (B, S, d) view of a token dim split over two
+    mesh dims — or, for a plain ``like``, the whole tensor."""
+    from torch.distributed.tensor import DTensor
+
+    out = from_local(y, spec, mesh)
+    if isinstance(like, DTensor):
+        return out.redistribute(mesh, like.placements)
+    return out.full_tensor()
+
+
+def _all_to_all(t, mesh, axis):
+    """Row block i of ``t`` (n, ...) to rank i of ``axis``; row block i of
+    the result came from rank i (JAX's untiled ``all_to_all`` on dim 0)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    group = (mesh, list(mesh.mesh_dim_names).index(axis))
+    flat = t.reshape(t.shape[0] * t.shape[1], *t.shape[2:])
+    out = funcol.all_to_all_single_autograd(flat.contiguous(), None, None,
+                                            group)
+    return funcol.wait_tensor(out).reshape(t.shape)
+
+
+def _capacity(counts, bound: int, even: int) -> int:
+    """Bucket rows for the local expert FFN, dropless: the largest count
+    rounded up to :data:`CAPACITY_STEP`, at most ``bound`` (at most
+    ``bound`` rows can reach one expert).  Tensors with no values (the
+    dry-run's fake tensors) have no routing to read: they take ``even``,
+    an expert's rows under an even routing, rounded the same way, so the
+    dry-run models an even load (real routings run above it)."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    if bound <= CAPACITY_STEP:
+        return bound
+    top = even if is_fake(counts) else int(counts.max())
+    return min(bound, -(-top // CAPACITY_STEP) * CAPACITY_STEP)
+
+
+def _local_ffn(w_gate, w_up, w_down, rows, e_loc, E_local, bound, even):
+    """JAX's sorted ``ragged_dot`` FFN over ``rows`` (R, d), each row going
+    to local expert ``e_loc`` (R,) (E_local: no expert, output zero):
+    the rows bucketed by expert and three ``branch_matmul`` launches with
+    the experts' counts (capacity: :func:`_capacity`).  Returns (R, d)."""
+    counts = (e_loc[:, None] == torch.arange(E_local, device=e_loc.device)
+              ).sum(0)
+    b = Buckets(e_loc[:, None], E_local + 1,
+                cap=_capacity(counts, bound, even))
+    xb = torch.where(b.valid[:E_local, :, None], rows[b.src[:E_local]],
+                     rows.new_zeros(()))
+    yb = expert_ffn(SimpleNamespace(w_gate=w_gate, w_up=w_up,
+                                    w_down=w_down), xb, counts.int())
+    valid = e_loc < E_local
+    out = yb[e_loc.clamp(max=E_local - 1), b.pos[:, 0].clamp(max=b.cap - 1)]
+    return torch.where(valid[:, None], out, out.new_zeros(()))
+
+
+def _moe_ep_replicated(params: MoE, cfg, x, mesh, axis, data_axes, stats):
+    """Decode-regime EP with 2-D expert sharding (§Perf O2').
+
+    Tokens are replicated over the whole mesh; expert weights stay
+    sharded at rest — expert dim over ``axis``, FFN hidden dim over the
+    data axes when they divide it — so no weight moves.  Every rank
+    computes its experts' share of its FFN slice; the partial outputs
+    are summed over both axes.  Dropless."""
+    from repro_torch.utils.sharding import P, axis_sizes
+
+    m = cfg.moe
+    sizes = axis_sizes(mesh)
+    n_shards = sizes[axis]
+    E_local = m.num_experts // n_shards
+    if E_local * n_shards != m.num_experts:
+        raise ValueError(f"{m.num_experts} experts not divisible by "
+                         f"{axis}={n_shards}")
+    n_data = 1
+    for a in data_axes:
+        n_data *= sizes[a]
+    f_sharded = bool(data_axes) and m.d_ff_expert % n_data == 0
+    fe = (data_axes if len(data_axes) > 1 else data_axes[0]) \
+        if f_sharded else None
+    router = to_local(params.router, P(None, None), mesh)
+    w_gate = to_local(params.w_gate, P(axis, None, fe), mesh)
+    w_up = to_local(params.w_up, P(axis, None, fe), mesh)
+    w_down = to_local(params.w_down, P(axis, fe, None), mesh)
+    x_loc = to_local(x, P(None, None), mesh)
+
+    T_loc = x_loc.shape[0]
+    k = m.num_experts_per_tok
+    w, idx, aux = route(SimpleNamespace(router=router), cfg, x_loc)
+    shard = mesh.get_local_rank(axis)
+    flat_e = idx.reshape(-1)
+    mine = (flat_e // E_local) == shard
+    e_loc = torch.where(mine, flat_e % E_local, E_local)   # overflow grp
+    tok = torch.arange(T_loc * k, device=x_loc.device) // k
+    ys = _local_ffn(w_gate, w_up, w_down, x_loc[tok], e_loc, E_local,
+                    T_loc, -(-T_loc * k // m.num_experts))
+    y = _combine(ys.reshape(T_loc, k, -1), w, x_loc.dtype)
+    # partial over f (data axes) + masked over experts (model axis)
+    y = psum(y, mesh, (axis,) + (data_axes if f_sharded else ()))
+    if stats is not None:
+        stats["dropped"] = torch.zeros((), dtype=torch.int64,
+                                       device=x_loc.device)
+    return _from_local(y, P(None, None), mesh, x), aux
+
+
+def _moe_ep_a2a(params: MoE, cfg, x, mesh, axis, data_axes, stats):
+    """Train/prefill-regime EP: capacity-based all-to-all dispatch.
+
+    Experts are sharded over ``axis``; each rank routes its own tokens
+    (split over every mesh axis), fills one buffer of ``kcap`` rows per
+    destination rank in the order the (token, choice) pairs appear
+    (JAX's cumsum rule), and exchanges them.  Pairs over capacity drop
+    and contribute zero — Switch semantics.  Returns (y sharded like the
+    tokens, aux averaged over every rank)."""
+    from repro_torch.utils.sharding import P, axis_sizes
+
+    m = cfg.moe
+    sizes = axis_sizes(mesh)
+    n_shards = sizes[axis]
+    E_local = m.num_experts // n_shards
+    if E_local * n_shards != m.num_experts:
+        raise ValueError(f"{m.num_experts} experts not divisible by "
+                         f"{axis}={n_shards}")
+    tok_spec = P((*data_axes, axis))
+    router = to_local(params.router, P(None, None), mesh)
+    w_gate = to_local(params.w_gate, P(axis, None, None), mesh)
+    w_up = to_local(params.w_up, P(axis, None, None), mesh)
+    w_down = to_local(params.w_down, P(axis, None, None), mesh)
+    x_loc = to_local(x, P(tok_spec[0], None), mesh)
+
+    T_loc, d = x_loc.shape
+    k = m.num_experts_per_tok
+    w, idx, aux = route(SimpleNamespace(router=router), cfg, x_loc)
+    kcap = int(max(1, T_loc * k * m.capacity_factor // n_shards))
+
+    # --- per-destination send buffers, by the pairs' order of appearance
+    send = Buckets(idx // E_local, n_shards, cap=kcap)
+    meta = torch.stack([(idx % E_local).float(), w.float()], -1)
+    meta = meta.reshape(T_loc * k, 2)[send.pair]         # (n, kcap, 2)
+    send_meta = torch.where(send.valid[..., None], meta, -1.0)
+    send_x = send.gather(x_loc)                           # (n, kcap, d)
+
+    # --- exchange: rank i sends row block j to rank j
+    rx = _all_to_all(send_x, mesh, axis).reshape(n_shards * kcap, d)
+    recv_meta = _all_to_all(send_meta, mesh, axis).reshape(-1, 2)
+    re = recv_meta[:, 0].long()
+    re = torch.where(re >= 0, re, E_local)               # overflow bucket
+
+    # --- local grouped expert FFN; a source row meets an expert once
+    ys = _local_ffn(w_gate, w_up, w_down, rx, re, E_local,
+                    min(n_shards * kcap, n_shards * T_loc),
+                    -(-T_loc * k // E_local))
+    back = _all_to_all(ys.reshape(n_shards, kcap, d), mesh, axis)
+
+    # --- return to source ranks and combine
+    y = send.combine(back, w, x_loc.dtype)
+    aux = psum(aux, mesh, data_axes + (axis,)) / mesh.size()
+    if stats is not None:
+        stats["dropped"] = (~send.keep).sum()
+    return _from_local(y, tok_spec + (None,), mesh, x), aux
+
+
+def _combine(rows, w, dtype):
+    """rows (T, k, d) weighted by gates w (T, k), added in choice order."""
+    y = torch.zeros(rows.shape[0], rows.shape[2], dtype=dtype,
+                    device=rows.device)
+    contrib = rows * w[..., None]
+    for j in range(rows.shape[1]):
+        y = y + contrib[:, j]
+    return y

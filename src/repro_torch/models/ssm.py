@@ -33,8 +33,12 @@ from torch import nn
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import (segsum, ssd_chunked,
                                               ssd_scan_ref)
+from repro_torch.utils.sharding import P
 
+from . import runtime_flags
 from .common import dense_init, param, rms_norm
+from .sharding import (DP_AXES, active_mesh, fit, from_local, maybe_shard,
+                       model_ways, placed, to_local)
 
 __all__ = ["Mamba", "init_mamba", "init_mamba_cache", "mamba_block",
            "mamba_decode_step", "segsum", "ssd_chunked", "ssd_decode_step",
@@ -57,6 +61,55 @@ def ssd_decode_step(state, x, dt, A, B, C):
     state = decay[..., None, None] * state + upd
     y = torch.einsum("bhn,bhpn->bhp", Ch, state)
     return y, state
+
+
+def on_head_shards(fn, xs, dt, A, B, C, state=None):
+    """``fn(xs, dt, A, B, C[, state])`` for the SSD, run on each rank's
+    (batch, head) shard under an active mesh when ``xs`` is a DTensor,
+    else on the tensors themselves.  xs (b, [S,] H, P), dt (b, [S,] H),
+    A (H,), B/C (b, [S,] G, N), state (b, H, P, N); ``fn`` returns y
+    like xs (and the new state).
+
+    Heads are independent given their group's B and C, so this is exact.
+    Batch goes over the data axes that divide it; heads over ``model``
+    when the decode state is so placed (``cache_pspecs``) or, in the
+    full-sequence scan, under ``runtime_flags.shard_ssm_heads`` (§Perf
+    O6) — else every ``model`` rank runs all heads, the replication JAX
+    reports XLA choosing there.  B and C stay whole, each rank taking the
+    groups its heads read.  DTensor has no strategy for the scan's
+    batched matmuls over these layouts."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = active_mesh()
+    if mesh is None or not isinstance(xs, DTensor):
+        return fn(xs, dt, A, B, C) if state is None \
+            else fn(xs, dt, A, B, C, state)
+    H, G, n = A.shape[0], B.shape[-2], model_ways()
+    rep, Hl = H // G, H // n
+    if state is not None:
+        want = "model" in placed(state, mesh).get(1, [])
+    else:
+        want = runtime_flags.shard_ssm_heads
+    h_ax = "model" if (want and H % n == 0
+                       and (Hl % rep == 0 or rep % Hl == 0)) else None
+    seq = (None,) * (xs.ndim - 3)
+    y_spec = fit(xs.shape, DP_AXES, *seq, h_ax, None)
+    b_ax = y_spec[0]
+    xl = to_local(xs, y_spec, mesh)
+    dl = to_local(dt, P(b_ax, *seq, h_ax), mesh)
+    Al = to_local(A, P(h_ax), mesh)
+    Bl = to_local(B, P(b_ax, *seq, None, None), mesh)
+    Cl = to_local(C, P(b_ax, *seq, None, None), mesh)
+    if h_ax is not None:
+        h0 = mesh.get_local_rank("model") * Hl
+        g = slice(h0 // rep, (h0 + Hl - 1) // rep + 1)
+        Bl, Cl = Bl[..., g, :], Cl[..., g, :]
+    if state is None:
+        return from_local(fn(xl, dl, Al, Bl, Cl), y_spec, mesh, xs.shape)
+    s_spec = P(b_ax, h_ax, None, None)
+    y, new = fn(xl, dl, Al, Bl, Cl, to_local(state, s_spec, mesh))
+    return (from_local(y, y_spec, mesh, xs.shape),
+            from_local(new, s_spec, mesh, state.shape))
 
 
 # --------------------------------------------------------------------------
@@ -156,8 +209,15 @@ def mamba_block(params: Mamba, cfg, x):
     z, xBC, dt = _split_proj(cfg, zxbcdt)
     xBC = _causal_conv(xBC, params.conv_w, params.conv_b)
     xs, B, C, dt, A = _ssm_inputs(params, cfg, xBC, dt)
-    y = ssd_scan(xs.float(), dt, A, B.float(), C.float(),
-                 chunk=cfg.ssm.chunk)
+    if runtime_flags.shard_ssm_heads:
+        # §Perf O6: heads over the model axis; the SSD scan is sequential
+        # over seq, so without this the full-seq fp32 tensors replicate.
+        xs = maybe_shard(xs, DP_AXES, None, "model", None)
+        dt = maybe_shard(dt, DP_AXES, None, "model")
+    y = on_head_shards(
+        lambda xs, dt, A, B, C: ssd_scan(xs.float(), dt, A, B.float(),
+                                         C.float(), chunk=cfg.ssm.chunk),
+        xs, dt, A, B, C)
     return _gated_norm(params, y, xs, z, x.dtype) @ params.out_proj
 
 
@@ -190,7 +250,9 @@ def mamba_decode_step(params: Mamba, cfg, x, cache):
               for i in range(w.shape[0]))
     xBC = F.silu(out + params.conv_b[None, None, :])
     xs, B, C, dtv, A = _ssm_inputs(params, cfg, xBC[:, 0], dt[:, 0])
-    y, state = ssd_decode_step(cache["state"], xs.float(), dtv, A,
-                               B.float(), C.float())
+    y, state = on_head_shards(
+        lambda xs, dt, A, B, C, st: ssd_decode_step(st, xs.float(), dt, A,
+                                                    B.float(), C.float()),
+        xs, dtv, A, B, C, cache["state"])
     y = _gated_norm(params, y, xs, z[:, 0], x.dtype) @ params.out_proj
     return y[:, None], {"state": state, "conv": win[:, 1:, :]}

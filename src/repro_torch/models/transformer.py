@@ -23,7 +23,8 @@ from .blocks import (apply_block, block_pattern, decode_block, init_block,
                      init_block_cache, init_paged_block_cache,
                      split_pattern)
 from .common import Norm, embed_init, norm, param, remat
-from .vocab import cross_entropy, lm_logits, logits_last_token
+from .sharding import shard_batch_seq
+from .vocab import cross_entropy, embed_lookup, lm_logits, logits_last_token
 
 
 def structure(cfg):
@@ -58,14 +59,14 @@ def embed_tokens(params: LM, cfg, tokens, frontend_embeds=None):
     n_front, d) (Qwen2-VL's vision patches, already projected by the stub
     frontend) are cast to the model dtype and prepended when present.
     Whisper's audio frames enter through :mod:`.encdec`."""
-    x = params.embed[tokens]
+    x = embed_lookup(params.embed, tokens)
     if frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
-    return x
+    return shard_batch_seq(x)
 
 
 def forward_lm(params: LM, cfg, tokens, frontend_embeds=None,
-               positions3=None, window=None, moe_impl="ragged"):
+               positions3=None, window=None, moe_impl="ragged", mesh=None):
     """Training / prefill forward.  Returns (hidden (B, S, d), aux_loss).
 
     Every attention layer runs the ``flash_attention`` kernel, every
@@ -82,18 +83,18 @@ def forward_lm(params: LM, cfg, tokens, frontend_embeds=None,
     aux_total = 0.0
     for layer in params.layers:
         x, aux = remat(apply_block, layer, cfg, x, positions, positions3,
-                       window, moe_impl)
+                       window, moe_impl, mesh)
         aux_total = aux_total + aux
     return norm(params.final_norm, x), aux_total
 
 
 def lm_loss(params: LM, cfg, tokens, labels, frontend_embeds=None,
-            positions3=None, moe_impl="ragged"):
+            positions3=None, moe_impl="ragged", mesh=None):
     """Mean cross-entropy (+ MoE aux), with remat.  labels = -1 entries
     are masked; the frontend positions carry no loss, so labels are (B,
     S_txt).  Returns (loss + aux, {"ce": loss, "aux": aux})."""
     hidden, aux = forward_lm(params, cfg, tokens, frontend_embeds,
-                             positions3, moe_impl=moe_impl)
+                             positions3, moe_impl=moe_impl, mesh=mesh)
     if frontend_embeds is not None:
         hidden = hidden[:, frontend_embeds.shape[1]:, :]
     loss = cross_entropy(lm_logits(params, cfg, hidden), labels)
@@ -102,11 +103,12 @@ def lm_loss(params: LM, cfg, tokens, labels, frontend_embeds=None,
 
 
 def prefill_lm(params: LM, cfg, tokens, frontend_embeds=None,
-               positions3=None, window=None, moe_impl="ragged"):
+               positions3=None, window=None, moe_impl="ragged", mesh=None):
     """Prefill: full forward returning last-token logits only (the full
     (B, S, V) logits tensor is never materialised)."""
     hidden, _ = forward_lm(params, cfg, tokens, frontend_embeds,
-                           positions3, window=window, moe_impl=moe_impl)
+                           positions3, window=window, moe_impl=moe_impl,
+                           mesh=mesh)
     return logits_last_token(params, cfg, hidden)
 
 
@@ -129,7 +131,8 @@ def init_paged_caches(cfg, batch, num_blocks, block_size, dtype, device):
 
 
 def decode_lm(params: LM, cfg, caches, tokens, cache_len, active=None,
-              block_tables=None, moe_impl="ragged", positions3=None):
+              block_tables=None, moe_impl="ragged", positions3=None,
+              mesh=None):
     """One decode step.  tokens: (B, 1) -> (logits (B, V), caches).
 
     ``cache_len`` is a scalar (every row at the same position) or (B,)
@@ -143,11 +146,11 @@ def decode_lm(params: LM, cfg, caches, tokens, cache_len, active=None,
     in place; a Mamba layer's is a new dict of new tensors, so the list
     passed in still holds the state from before the step.
     """
-    x = params.embed[tokens]                           # (B, 1, d)
+    x = embed_lookup(params.embed, tokens)             # (B, 1, d)
     new = []
     for layer, cache in zip(params.layers, caches):
         x, cache = decode_block(layer, cfg, x, cache, cache_len, active,
-                                block_tables, moe_impl, positions3)
+                                block_tables, moe_impl, positions3, mesh)
         new.append(cache)
     hidden = norm(params.final_norm, x)
     return logits_last_token(params, cfg, hidden), new

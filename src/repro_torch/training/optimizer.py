@@ -63,9 +63,10 @@ def init_opt_state(params, cfg: OptConfig) -> dict:
         return {
             "master": {n: p.detach() if p.dtype == torch.float32
                        else p.detach().float() for n, p in named.items()},
-            "m": {n: torch.zeros(p.shape, dtype=mdt, device=p.device)
+            # zeros_like: a DTensor parameter's moments are placed as it is
+            "m": {n: torch.zeros_like(p, dtype=mdt)
                   for n, p in named.items()},
-            "v": {n: torch.zeros(p.shape, dtype=mdt, device=p.device)
+            "v": {n: torch.zeros_like(p, dtype=mdt)
                   for n, p in named.items()},
             "step": torch.zeros((), dtype=torch.int32, device=device),
         }
@@ -93,6 +94,18 @@ def _chunks(named, limit: int = CHUNK_ELEMS):
         runs[-1].append(name)
         size += p.numel()
     return runs
+
+
+def _copy_(dst, src):
+    """``torch._foreach_copy_``; tensor by tensor for DTensors (the
+    dry-run's), which have no sharding strategy for it."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(dst[0], DTensor):
+        for d, s in zip(dst, src):
+            d.copy_(s)
+    else:
+        torch._foreach_copy_(dst, src)
 
 
 @torch.no_grad()
@@ -131,11 +144,12 @@ def apply_updates(params, grads, state, cfg: OptConfig):
         torch._foreach_mul_(delta, lr)
         torch._foreach_sub_(master, delta)
         if m32[0] is not m[0]:                # rounded to moment_dtype
-            torch._foreach_copy_(m, m32)
-            torch._foreach_copy_(v, v32)
+            _copy_(m, m32)
+            _copy_(v, v32)
+        # an fp32 parameter is its own master (init_opt_state)
         low = [(named[n], t) for n, t in zip(names, master)
-               if named[n].data_ptr() != t.data_ptr()]
+               if named[n].dtype != t.dtype]
         if low:                               # rounded to the model dtype
-            torch._foreach_copy_([p for p, _ in low], [t for _, t in low])
+            _copy_([p for p, _ in low], [t for _, t in low])
     state = dict(state, step=step)
     return params, state, {"grad_norm": gnorm, "lr": lr}

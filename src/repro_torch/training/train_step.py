@@ -31,6 +31,24 @@ def loss_and_grads(api, params, batch):
             grads)
 
 
+def _slice(v, i: int, n: int):
+    """Microbatch ``i`` of ``n``: rows ``i*B/n`` to ``(i+1)*B/n`` of the
+    leading dim.  A DTensor batch (the dry-run's) takes the same rows of
+    each rank's shard, so no row moves between ranks."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(v, DTensor):
+        rows = len(v) // n
+        return v[i * rows:(i + 1) * rows]
+    loc = v.to_local()
+    if loc.shape[0] % n:
+        raise ValueError(f"{loc.shape[0]} local rows do not split into "
+                         f"{n} microbatches")
+    rows = loc.shape[0] // n
+    return DTensor.from_local(loc[i * rows:(i + 1) * rows], v.device_mesh,
+                              v.placements, run_check=False)
+
+
 def make_train_step(api, opt_cfg: "OptConfig | None" = None,
                     microbatches: int = 1):
     """Returns ``train_step(params, opt_state, batch) -> (params,
@@ -50,10 +68,9 @@ def make_train_step(api, opt_cfg: "OptConfig | None" = None,
         if microbatches == 1:
             loss, metrics, grads = loss_and_grads(api, params, batch)
         else:
-            rows = len(next(iter(batch.values()))) // microbatches
             grads, losses, ms = None, [], []
             for i in range(microbatches):
-                part = {k: v[i * rows:(i + 1) * rows]
+                part = {k: _slice(v, i, microbatches)
                         for k, v in batch.items()}
                 loss_i, m_i, g = loss_and_grads(api, params, part)
                 if grads is None:

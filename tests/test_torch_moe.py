@@ -394,7 +394,6 @@ def test_moe_impl_follows_jax():
     from repro.models.model import _moe_impl_for as jax_impl
     from repro_torch import configs
     from repro_torch.models.model import _moe_impl_for
-    from repro_torch.models.moe import moe_ep
 
     for arch in ("dbrx-132b", "kimi-k2-1t-a32b", "jamba-v0.1-52b",
                  "stablelm-3b"):
@@ -403,9 +402,30 @@ def test_moe_impl_follows_jax():
             for distributed in (False, True):
                 assert _moe_impl_for(cfg, distributed) \
                     == jax_impl(cfg, distributed)
-    _, _, cfg, moe = _layer()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        moe_ep(moe, cfg, torch.zeros(2, 64))
+    # a one-rank moe_ep (in a child process: a process group is
+    # process-global) equals moe_ragged on a dropless input
+    proc = subprocess.run(
+        [sys.executable, "-c", _ONE_RANK_EP % os.path.dirname(__file__)],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split()[-1] == "equal"
+
+
+_ONE_RANK_EP = """
+import sys
+sys.path.insert(0, %r)
+import torch
+from test_torch_moe import _layer, _tokens
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import moe as m
+_, _, cfg, layer = _layer()
+x = torch.tensor(_tokens(5, cfg.d_model))
+y, aux = m.moe_ep(layer, cfg, x, make_host_mesh(backend="gloo"))
+y2, aux2 = m.moe_ragged(layer, cfg, x)
+assert torch.equal(y, y2) and torch.equal(aux, aux2)
+print("equal")
+"""
 
 
 # --------------------------------------------------------------------------

@@ -80,7 +80,10 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    kernels per decode-attention wrapper call);
 7. CLI: ``repro_torch.launch.serve.serve("stablelm-3b",
    engine_mode="continuous")`` on the card, then the entry point with
-   ``--engine round`` and with ``--no-paged``;
+   ``--engine round`` and with ``--no-paged``; then
+   ``examples/torch_serve_requests.py`` (h2o-danube-3-4b reduced through
+   the round engine under a tight §3.3 budget), its ``decode_attention``
+   launches counted;
 8. planner A, the grouped kernel's path: ``torch_graph_zoo.multihead_graph
    (dim=2560, heads=32, seq=512)`` (one stablelm-3b attention layer at
    its widths, fp32) planned with the card's free memory as the §3.3
@@ -111,12 +114,13 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     256-token prompt, the scan at layer 0's own inputs against the
     float64 recurrence, and profiles of one decode step and one prefill
     call (device kernels per ``ssd_scan`` call);
-11. mamba2 serve: the 8-request workload through ``ContinuousEngine``
-    (paged, megastep 8, sharing asked for and gated off; dense at
-    megastep 8 and 1) and ``ServingEngine``: streams bit-identical, no
-    ``ssd_scan`` launch in decode, reset dispatches counted; a request
-    served in a slot after another equals its solo run; one poisoned
-    megastep falls back and ends bit-identical to the clean run;
+11. mamba2 serve, through phase 4-5's shared ``serve_phase``: the
+    8-request workload through ``ContinuousEngine`` (paged at megastep 8
+    and 1, sharing asked for and gated off; dense at megastep 8 and 1)
+    and ``ServingEngine``: streams bit-identical, no ``ssd_scan`` launch
+    in decode, reset dispatches counted; a request served in a slot after
+    another equals its solo run; one poisoned megastep falls back and
+    ends bit-identical to the clean run;
 12. mamba2 planner: ``export_decoder_graph`` of mamba2-370m at full width
     and depth (fp32), batch 1, seq 256, through ``reference`` and fused
     ``parallax``: one ``ssd_scan`` launch per layer per run, logits
@@ -124,8 +128,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 13. CLI: ``serve("mamba2-370m")`` and ``--arch mamba2-370m --engine
     round``;
 14. MoE kernel cases: ``branch_matmul`` in bf16 at the MoE decode
-    path's shapes — dbrx-132b (16 experts, d_model 6144, d_ff 10752) and
-    kimi-k2 (384 experts, d_model 7168, d_ff 2048) at capacity 8 (B=8) —
+    path's shapes — dbrx-132b (16 experts, d_model 6144, d_ff 10752),
+    kimi-k2 (384 experts, d_model 7168, d_ff 2048) and jamba-v0.1-52b (16
+    experts top-2, d_model 4096, d_ff 14336) at capacity 8 (B=8) —
     each twice, with every row counted and with the per-expert counts
     of a top-k routing of 8 tokens (the path's), each against its plain
     version with the same counts at 2e-2, bit-identical on a second
@@ -134,11 +139,12 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     without counts, rows past the counts exact zeros; timed beside its
     padded and routed-work bounds, one ``torch.bmm`` call on the same
     padded tensors and one ``torch._grouped_mm`` call on the routed rows
-    (the prefill shapes follow in 16 and 18);
+    (the prefill shapes follow in 16, 18 and 38);
 15. dbrx-132b serve: full width, 8 of its 40 layers (54.6 GB of bf16
     weights; random, from ``torch.Generator`` seed 0; router fp32), the
-    8-request workload through ``ContinuousEngine`` (paged, megastep 8,
-    sharing), launch counts zeroed just before and read just after: per
+    8-request workload through the shared ``serve_phase``
+    (``ContinuousEngine``, paged, megastep 8, sharing), launch counts
+    zeroed just before and read just after: per
     ``decode_fn`` call 3 ``branch_matmul`` launches per layer (the
     dropless expert GEMMs of ``moe_ragged``) and one of each paged
     kernel; streams bit-identical at megastep 1, sharing off, on the
@@ -337,8 +343,45 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     ``torch.cuda.max_memory_allocated()``.  Their launch counts print on
     a "distributed launches per call" line before the ``kernels`` line.
 
-dbrx-132b and kimi-k2 are never resident together, nor beside another
-full-width model: each is freed before the next is built.
+37.-40. jamba-v0.1-52b at full width, 16 of its 32 layers (two
+    periods of its 1:7 attention/Mamba interleave: attention at layers 4
+    and 12, MoE with 16 experts top-2 on the 8 odd layers; d_model 4096,
+    GQA 32/8 heads of 128, Mamba H=128, P=64, N=16; 25.998 B parameters
+    in bf16, random from ``torch.Generator`` seed 0; after 36, before
+    23): 37. the attention kernels at its shapes through phase 28's cases
+    (``flash_attention`` B=2, S=T=2048, causal; the decode kernels at
+    B=8 over 160 slots; ``paged_append`` C=1), bf16 timed beside the bound
+    and SDPA (its MoE decode GEMMs are cases of phase 14); 38.
+    ``prefill_fn`` at B=2, S=2048 through the shared ``prefill_phase``:
+    exactly 2 ``flash_attention``, 14 ``ssd_scan`` and 24
+    ``branch_matmul`` launches a call and no other kernel, logits within
+    a normwise ``JAMBA_PREFILL_TOL`` of the call with the three plain
+    versions patched in, each kernel alone (the others plain) and the
+    plain scan at half its chunk inside that limit, each kernel's planted
+    fault and the plain scan with y or dt rounded to bf16 outside it, a
+    256-token prompt against token-by-token
+    decode, layer 1's MoE at its own inputs with its three launches
+    checked and timed at the prefill's capacity (as in 16), a profile of
+    the call; 39. the serving identities through the shared
+    ``serve_phase`` (paged at megastep 8 and 1: 2 ``paged_append``, 2
+    ``paged_decode_attention`` and 24 ``branch_matmul`` a ``decode_fn``
+    call; dense at 8 and 1 with 2 ``decode_attention`` a call; the round
+    engine; sharing, prefix cache and host tier gated off by the per-row
+    state, reset dispatches counted; slot reuse and a poisoned megastep),
+    profiles of a decode step; 40. the bf16 model freed, an fp32 model of
+    its layers 0-4 (every block kind; an fp32 copy of 16 layers would
+    take 104 GB) with the same weights: ``prefill_fn`` against the plain
+    versions at 2e-4 and token-by-token decode, then its DAG (batch 1,
+    seq 256) through ``reference`` and fused ``parallax`` within 2e-4 of
+    the op-by-op oracle (one ``ssd_scan`` launch a Mamba layer a run),
+    and hetero H: ``parallax-hetero`` under ``MOBILE_CONFIG`` with the
+    scans and the routers on the host.  The launch counts print on a
+    "jamba launches per call" line before the ``kernels`` line, whose
+    ``*_jamba*`` rows are the kernels at these shapes.
+
+dbrx-132b, kimi-k2 and jamba-v0.1-52b are never resident together, nor
+beside another full-width model: each is freed before the next is
+built.
 
 The last three lines are the ``kernels`` JSON object, the card's name
 and power limit, and the result object ``{"ok": true, "device":
@@ -414,6 +457,15 @@ XCHECK_TOL = 5e-2                  # prefill_fn vs token-by-token decode
 # 3.485e-2 (the kernel); faulty ones 4.476e-2 (y rounded to bf16) and
 # 4.488e-2 (dt rounded to bf16).  The limit lies between the two.
 MAMBA_PREFILL_TOL = 4e-2
+# jamba-v0.1-52b (16 layers) in bf16, normwise from the three plain
+# versions (H100 80GB HBM3, 700 W): sound readings 1.653e-2 (the
+# flash_attention kernel alone), 2.230e-2 (ssd_scan), 2.257e-2
+# (branch_matmul), 2.341e-2 (the plain scan at chunk 128: two fp32 orders
+# of one scan) and 2.358e-2 (all three kernels); the nearest faults
+# 6.738e-2 (the plain scan's y rounded to bf16), 6.759e-2 (its dt rounded
+# to bf16) and 7.506e-2 (the scan without its diagonal term).  The limit
+# lies between the two, near their geometric mean.
+JAMBA_PREFILL_TOL = 4e-2
 
 # the Mamba2 phases (slice 4): mamba2-370m's SSD widths
 SSD_P, SSD_N, SSD_TOL = 64, 128, 2e-4
@@ -443,6 +495,8 @@ MOE_CASES = (                      # label, G, M (capacity = B), K, N, top-k
     ("dbrx decode down", 16, B, 10752, 6144, 4),
     ("kimi decode gate/up", 384, B, 7168, 2048, 8),
     ("kimi decode down", 384, B, 2048, 7168, 8),
+    ("jamba decode gate/up", 16, B, 4096, 14336, 2),
+    ("jamba decode down", 16, B, 14336, 4096, 2),
 )
 
 # the heterogeneous runtime (slice 6)
@@ -1190,45 +1244,88 @@ def first_divergence(api, params, a, b, rid):
             f"argmax here {int(greedy_serving(logits)[0])}")
 
 
-def serve_phase(api, params, pa, da):
-    """Phases 4-5b: the 8-request workload through ``ContinuousEngine``
-    (paged, megastep 8, prefix sharing) at full width: one
-    ``paged_append`` and one ``paged_decode_attention`` launch a layer
-    and ``decode_fn`` call, no ``decode_attention``, a shared block; the
-    same streams bit for bit at megastep 1 and with sharing off, then on
-    the dense cache and through the round engine
-    (:func:`dense_serve_phase`).  Returns the paged run's launches with
-    the dense runs' ``decode_attention`` launches, and the paged run's
-    ``decode_fn`` calls."""
+@contextlib.contextmanager
+def counted_resets():
+    """A context in which ``Stepper.reset_rows`` counts its dispatches
+    into the yielded one-element list."""
+    from repro_torch.runtime.stepper import Stepper
+
+    resets = [0]
+    reset_rows = Stepper.reset_rows
+
+    def counted(self, caches, fresh):
+        resets[0] += 1
+        return reset_rows(self, caches, fresh)
+
+    Stepper.reset_rows = counted
+    try:
+        yield resets
+    finally:
+        Stepper.reset_rows = reset_rows
+
+
+def decode_launches(cfg, calls, paged):
+    """The kernel launches of ``calls`` ``decode_fn`` calls: per attention
+    layer one ``paged_append`` and one ``paged_decode_attention`` (paged)
+    or one ``decode_attention`` (dense), three ``branch_matmul`` per MoE
+    layer; no ``flash_attention`` and no ``ssd_scan`` (Mamba decode is the
+    recurrence)."""
+    attn, _, moe = layer_counts(cfg)
+    return {"paged_append": attn * calls if paged else 0,
+            "paged_decode_attention": attn * calls if paged else 0,
+            "decode_attention": 0 if paged else attn * calls,
+            "branch_matmul": 3 * moe * calls,
+            "flash_attention": 0, "ssd_scan": 0}
+
+
+def serve_phase(api, params, identities=True):
+    """Phases 4-5b (11 for mamba2, 15 and 18 for the MoE models, 30 for
+    qwen2-vl, 39 for jamba): the 8-request workload through
+    ``ContinuousEngine`` (paged, megastep 8, prefix sharing asked for) at
+    full width, every launch count zeroed just before and read just
+    after (:func:`decode_launches` per ``decode_fn`` call).  Sharing must
+    engage; a model with per-row state gates it and the host tier off,
+    and its reset dispatches are counted.  With ``identities``: the same
+    streams bit for bit at megastep 1, with sharing off (where the engine
+    arms it), on the dense cache and through the round engine
+    (:func:`dense_serve_phase`), and for a model with per-row state a
+    slot reused and a poisoned megastep.  Returns the paged run's
+    launches with the dense runs' ``decode_attention`` launches, and the
+    paged run's ``decode_fn`` calls."""
     cfg = api.cfg
+    mods = kernel_modules()
     calls = count_calls(api)
+    for m in mods:
+        m.reset_launches()
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    pa.reset_launches()
-    da.reset_launches()
-    streams, eng, wall = serve_full_width(api, params, 8, True)
-    launched, n_calls = dict(pa.launches), calls[0]
+    with counted_resets() as resets:
+        streams, eng, wall = serve_full_width(api, params, 8, True)
+    launched, n_calls = kernel_counts(mods), calls[0]
     peak = torch.cuda.max_memory_allocated()
     n_tok = sum(len(t) for t in streams.values())
+    stateful = eng.kv.state_bytes > 0
     log(f"serve: {cfg.name}: 8/8 requests, {n_tok} tokens in {wall:.3f} s "
         f"({n_tok / wall:.1f} tok/s), {eng.dispatches} dispatches "
         f"({eng.dispatches / n_tok:.4f} per token), {eng.megasteps} "
-        f"megasteps, {calls[0]} decode_fn calls, shared block hits "
-        f"{eng.kv.shared_block_hits}, peak device memory "
-        f"{peak / 2**30:.2f} GiB")
-    log(f"serve: {cfg.name}: launches {launched}, decode_attention "
-        f"{da.launches['decode_attention']}")
-    for name, n in launched.items():
-        if n != cfg.num_layers * calls[0]:
-            raise AssertionError(f"{name}: {n} launches for {calls[0]} "
-                                 f"decode_fn calls x {cfg.num_layers} "
-                                 f"layers")
-    if da.launches["decode_attention"]:
-        raise AssertionError("the paged run launched decode_attention")
-    if eng.kv.shared_block_hits == 0:
+        f"megasteps, {n_calls} decode_fn calls, {resets[0]} reset "
+        f"dispatches, shared block hits {eng.kv.shared_block_hits}, peak "
+        f"device memory {peak / 2**30:.2f} GiB; launches {launched}")
+    want = decode_launches(cfg, n_calls, paged=True)
+    if launched != want or n_calls == 0:
+        raise AssertionError(f"{cfg.name}: launches {launched} for {n_calls}"
+                             f" decode_fn calls, expected {want}")
+    if stateful:
+        if eng.prefix_sharing or eng.spill_enabled or resets[0] == 0:
+            raise AssertionError("sharing or spill armed for a model with "
+                                 "per-row state, or no reset dispatch")
+    elif eng.kv.shared_block_hits == 0:
         raise AssertionError("prefix sharing never engaged")
+    if not identities:
+        return launched, n_calls
 
     # phase 5: identity across megastep N and sharing
-    for megastep, sharing in ((1, True), (8, False)):
+    for megastep, sharing in ((1, True), (8, False))[:1 if stateful else 2]:
         other, e2, w2 = serve_full_width(api, params, megastep, sharing)
         same = other == streams
         log(f"identity: {cfg.name} megastep {megastep}, sharing {sharing}: "
@@ -1238,47 +1335,55 @@ def serve_phase(api, params, pa, da):
             raise AssertionError("greedy streams differ")
     del eng, e2
     launched["decode_attention"] = dense_serve_phase(api, params, calls,
-                                                     streams, pa, da)
+                                                     streams, stateful)
+    if stateful:
+        stateful_serve_checks(api, params, streams)
     return launched, n_calls
 
 
-def dense_serve_phase(api, params, calls, paged_streams, pa, da):
+def dense_serve_phase(api, params, calls, paged_streams, stateful):
     """Phase 5b: the paged run's workload through ContinuousEngine(paged=
     False) at megastep 8 and 1 and through ServingEngine.  Each run
-    zeroes the launch counts just before and reads them just after, and
-    its streams must equal the paged run's (the first divergence is
-    printed before the phase fails); returns the decode_attention
-    launches of the three runs."""
+    zeroes the launch counts just before and reads them just after
+    (:func:`decode_launches`; with per-row ``stateful`` caches, the
+    continuous runs' reset dispatches counted), and its streams must
+    equal the paged run's (the first divergence is printed before the
+    phase fails); returns the decode_attention launches of the three
+    runs."""
+    mods = kernel_modules()
     total = 0
     runs = (("continuous dense, megastep 8", 8),
             ("continuous dense, megastep 1", 1), ("round engine", None))
     streams_of = {}
     for label, megastep in runs:
         calls[0] = 0
-        pa.reset_launches()
-        da.reset_launches()
+        for m in mods:
+            m.reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        if megastep is None:
-            streams, eng, wall = serve_round(api, params)
-        else:
-            streams, eng, wall = serve_full_width(api, params, megastep,
-                                                  False, paged=False)
-        launched = da.launches["decode_attention"]
+        with counted_resets() as resets:
+            if megastep is None:
+                streams, eng, wall = serve_round(api, params)
+            else:
+                streams, eng, wall = serve_full_width(api, params, megastep,
+                                                      False, paged=False)
+        launched = kernel_counts(mods)
         peak = torch.cuda.max_memory_allocated()
         n_tok = sum(len(t) for t in streams.values())
-        log(f"dense: {label}: 8/8 requests, {n_tok} tokens in {wall:.3f} "
-            f"s ({n_tok / wall:.1f} tok/s), {eng.dispatches} dispatches "
-            f"({eng.dispatches / n_tok:.4f} per token), {calls[0]} "
-            f"decode_fn calls, decode_attention launches {launched}, "
-            f"paged launches {dict(pa.launches)}, peak device memory "
+        log(f"dense: {api.cfg.name}: {label}: 8/8 requests, {n_tok} tokens "
+            f"in {wall:.3f} s ({n_tok / wall:.1f} tok/s), {eng.dispatches} "
+            f"dispatches ({eng.dispatches / n_tok:.4f} per token), "
+            f"{calls[0]} decode_fn calls, {resets[0]} reset dispatches, "
+            f"launches {launched}, peak device memory "
             f"{peak / 2**30:.2f} GiB")
-        if launched != api.cfg.num_layers * calls[0] or calls[0] == 0:
-            raise AssertionError(f"{label}: {launched} decode_attention "
-                                 f"launches for {calls[0]} decode_fn calls")
-        if any(pa.launches.values()):
-            raise AssertionError(f"{label}: the paged kernels launched")
-        total += launched
+        want = decode_launches(api.cfg, calls[0], paged=False)
+        if launched != want or calls[0] == 0:
+            raise AssertionError(f"{label}: launches {launched} for "
+                                 f"{calls[0]} decode_fn calls, expected "
+                                 f"{want}")
+        if stateful and megastep is not None and resets[0] == 0:
+            raise AssertionError(f"{label}: no reset dispatch")
+        total += launched["decode_attention"]
         streams_of[label] = streams
     for label, streams in streams_of.items():
         same = streams == paged_streams
@@ -1293,6 +1398,62 @@ def dense_serve_phase(api, params, calls, paged_streams, pa, da):
                 break
         raise AssertionError(f"{label}: streams differ from the paged run")
     return total
+
+
+def reuse_requests(vocab):
+    """One slot, two tenants: a 40-token prompt, then a 2-token one (under
+    the conv window: a stale window would reach its stream)."""
+    from repro_torch.runtime.engine import Request
+
+    rng = np.random.default_rng(5)
+    return [Request(i, rng.integers(0, vocab, n).astype(np.int32),
+                    max_new_tokens=16) for i, n in enumerate((40, 2))]
+
+
+def serve_one_slot(api, params, reqs):
+    from repro_torch.runtime.config import EngineConfig
+    from repro_torch.runtime.engine import ContinuousEngine
+
+    eng = ContinuousEngine(api, params, device=api.device,
+                           config=EngineConfig(
+                               hbm_budget=4 << 30, max_batch=1, megastep=8,
+                               block_size=BS, max_context=MAX_CONTEXT))
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run()
+    eng.assert_quiescent()
+    if not all(c.ok for c in done.values()):
+        raise AssertionError("one-slot run: a request failed")
+    return {k: c.tokens for k, c in done.items()}, eng
+
+
+def stateful_serve_checks(api, params, streams):
+    """A model with per-row state (Mamba layers): a request served in a
+    slot after another equals its solo run (the reset dispatch clears the
+    first tenant's state), and one poisoned megastep falls back and ends
+    bit-identical to the clean paged ``streams``."""
+    from repro_torch.runtime.faults import FaultEvent, FaultPlane
+
+    name = api.cfg.name
+    first, second = reuse_requests(api.cfg.vocab_size)
+    solo, _ = serve_one_slot(api, params, [second])
+    both, eng = serve_one_slot(api, params, [first, second])
+    same = both[1] == solo[1]
+    log(f"serve: {name}: one slot, request 1 after request 0: stream "
+        f"{'equal to' if same else 'DIFFERS from'} its solo run "
+        f"({eng.dispatches} dispatches)")
+    if not same:
+        raise AssertionError("slot reuse leaked state")
+    plane = FaultPlane([FaultEvent(3, "poison", rows=(0, 1, 2))])
+    poisoned, eng, _ = serve_full_width(api, params, 8, True, faults=plane)
+    same = poisoned == streams
+    log(f"serve: {name}: poisoned megastep at iteration 3: watchdog trips "
+        f"{eng.watchdog_trips}, megastep fallbacks {eng.megastep_fallbacks}, "
+        f"rows failed {eng.rows_failed}; streams "
+        f"{'bit-identical to' if same else 'DIFFER from'} the clean run")
+    if not (same and eng.megastep_fallbacks == 1 and eng.rows_failed == 0):
+        raise AssertionError("the poisoned megastep did not fall back "
+                             "bit-identically")
 
 
 def normwise(a, b):
@@ -1318,40 +1479,44 @@ def kernel_modules():
             flash_attention, ssd_scan)
 
 
-def prefill_phase(api, params, batch, name, patch, xcheck, device,
-                  tol=PREFILL_TOL, readings=()):
-    """Phase 5c (10 for mamba2, 29 for qwen2-vl): prefill_fn on ``batch``
-    through the kernel ``name``, one launch a layer and no launch of
-    another kernel, held to the same call with the
-    plain version patched in (``patch``: module, attribute, function) —
-    in the bf16 model at ``tol`` and in an fp32 model with the same
-    weights at ``PREFILL_TOL_FP32`` — and to the token-by-token path on
-    the first ``xcheck`` tokens of row 0 (a text prompt: where the model
-    takes M-RoPE, every stream at the token's position).
-
-    ``readings`` = ((label, patch, faulty), ...): variants patched in,
-    each normwise from the plain version's logits inside ``tol`` where
-    sound and outside it where ``faulty``, so the limit is shown to
-    separate them.  Returns the launches of one prefill_fn call."""
+def patched(api, params, batch, swaps):
+    """``api.prefill_fn(params, batch)`` with each (module, attribute,
+    function) of ``swaps`` patched in for the call, later ones over
+    earlier ones."""
     import importlib
 
-    from repro_torch.models import build_model
+    saved = []
+    try:
+        for mod_name, attr, fn in swaps:
+            mod = importlib.import_module(mod_name)
+            saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, fn)
+        return api.prefill_fn(params, batch)
+    finally:
+        for mod, attr, fn in reversed(saved):
+            setattr(mod, attr, fn)
+
+
+def prefill_phase(api, params, batch, want, patch, xcheck, device,
+                  tol=PREFILL_TOL, readings=(), fp32=True):
+    """Phase 5c (10 for mamba2, 29 for qwen2-vl, 38 for jamba): prefill_fn
+    on ``batch``, launching exactly ``want`` ({kernel: launches a call})
+    and no other kernel, held to the same call with the plain versions
+    patched in (``patch``: (module, attribute, function) swaps) in the
+    bf16 model at ``tol`` and, with ``fp32``, in an fp32 model with the
+    same weights (:func:`fp32_prefill_check`); then to the token-by-token
+    path on the first ``xcheck`` tokens of row 0 (a text prompt: where
+    the model takes M-RoPE, every stream at the token's position).
+
+    ``readings`` = ((label, swaps, faulty), ...): variants patched in,
+    each normwise from the plain versions' logits inside ``tol`` where
+    sound and outside it where ``faulty``, so the limit is shown to
+    separate them.  Returns the launches of one prefill_fn call."""
     from repro_torch.runtime.sampling import greedy_serving
     from repro_torch.runtime.stepper import Stepper
 
     cfg = api.cfg
     mods = kernel_modules()
-
-    def patched(api_, params_, swap):
-        mod_name, attr, fn = swap
-        mod = importlib.import_module(mod_name)
-        saved = getattr(mod, attr)
-        setattr(mod, attr, fn)
-        try:
-            return api_.prefill_fn(params_, batch)
-        finally:
-            setattr(mod, attr, saved)
-
     Bn, n_text = batch["tokens"].shape
     n_front = batch["frontend_embeds"].shape[1] \
         if "frontend_embeds" in batch else 0
@@ -1373,81 +1538,53 @@ def prefill_phase(api, params, batch, name, patch, xcheck, device,
             api.prefill_fn(params, batch)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-        want = dict.fromkeys(counts, 0)
-        want[name] = cfg.num_layers
+        expected = dict.fromkeys(counts, 0) | want
         if logits.shape != (Bn, cfg.vocab_size) \
                 or not torch.isfinite(logits).all():
             raise AssertionError("prefill_fn: malformed logits")
-        if counts != want:
+        if counts != expected:
             raise AssertionError(f"prefill_fn launches {counts}, expected "
-                                 f"{want}")
-        plain = patched(api, params, patch)
-        far = [(label, faulty, normwise(patched(api, params, swap), plain))
-               for label, swap, faulty in readings]
+                                 f"{expected}")
+        plain = patched(api, params, batch, patch)
+        far = [(label, faulty, normwise(patched(api, params, batch, swaps),
+                                        plain))
+               for label, swaps, faulty in readings]
         torch.cuda.synchronize()
     rel = normwise(logits, plain)
     same_argmax = torch.equal(greedy_serving(logits), greedy_serving(plain))
+    launched = ", ".join(f"{n} {k}" for k, n in want.items())
     log(f"prefill: {cfg.name} prefill_fn {shape} at full width: "
-        f"{counts[name]} {name} launches per call, "
+        f"{launched} launches per call, "
         f"{float(np.median(walls)):.3f} ms per call (median of "
         f"{PREFILL_RUNS}, {min(walls):.3f}-{max(walls):.3f}), peak device "
-        f"memory {peak / 2**30:.2f} GiB; vs the plain version: max abs "
+        f"memory {peak / 2**30:.2f} GiB; vs the plain versions: max abs "
         f"{(logits.float() - plain.float()).abs().max().item():.3e} on "
         f"|logits| <= {plain.float().abs().max().item():.2f}, normwise "
         f"{rel:.3e} (tol {tol:.3e}), argmax "
         f"{'equal' if same_argmax else 'DIFFERS'}")
     if readings:
-        log("prefill: variants of the plain version, normwise from it"
+        log("prefill: variants, normwise from the plain versions"
             + "".join(f"; {label} {r:.3e}" for label, _, r in far))
     if not rel <= tol:
-        raise AssertionError(f"prefill_fn off its plain-{name} version")
+        raise AssertionError("prefill_fn off its plain versions")
     for label, faulty, r in far:
         if (r <= tol) == faulty:
             raise AssertionError(f"prefill_fn: the limit {tol} does not "
                                  f"separate the variant {label} ({r:.3e})")
-    # an fp32 model with the same weights: kernel against plain version
-    # without bf16 rounding, and how far each bf16 path lies from it (the
-    # kernel should add no more error than the plain version)
-    api32 = build_model(cfg, device=device, dtype="float32")
-    p32 = api32.init(None)
-    p32.load_state_dict(params.state_dict())
-    prompt = batch["tokens"][:1, :xcheck]
-    text = {"tokens": prompt}
-    if cfg.mrope_sections:
-        text["positions3"] = torch.arange(
-            xcheck, dtype=torch.int32, device=device).expand(3, 1, xcheck)
-    with torch.no_grad():
-        ref32 = api32.prefill_fn(p32, batch)
-        plain32 = patched(api32, p32, patch)
-        # the fp32 cross-check: prefill_fn against scalar token-by-token
-        # decode on the dense cache, raw fp32 argmax (no bf16 ties)
-        full32 = api32.prefill_fn(p32, text)
-        caches = api32.init_caches(1, xcheck, tile=BS)
-        for i in range(xcheck):
-            step32, caches = api32.decode_fn(p32, caches, {
-                "tokens": prompt[:, i:i + 1], "cache_len": i})
-    torch.cuda.synchronize()
-    rel32 = normwise(ref32, plain32)
-    log(f"prefill: fp32 model, same weights: kernel vs plain version "
-        f"normwise {rel32:.3e} (tol {PREFILL_TOL_FP32}); bf16 vs fp32 "
-        f"evaluation: kernel path normwise {normwise(logits, ref32):.3e}, "
-        f"plain path {normwise(plain, plain32):.3e}")
-    if not rel32 <= PREFILL_TOL_FP32:
-        raise AssertionError(f"fp32 prefill_fn off its plain-{name} "
-                             f"version")
-    a_full, a_step = int(full32[0].argmax()), int(step32[0].argmax())
-    rel = normwise(full32, step32)
-    diff = (full32 - step32).abs().max().item()
-    gap = (full32[0, a_full] - full32[0, a_step]).abs().item()
-    log(f"prefill: fp32 model, {xcheck}-token prompt: prefill_fn argmax "
-        f"{a_full}, scalar token-by-token argmax {a_step}; logits normwise "
-        f"{rel:.3e} (tol {PREFILL_TOL_FP32}), max abs {diff:.3e}")
-    if not rel <= PREFILL_TOL_FP32 or (a_full != a_step and not gap <= diff):
-        raise AssertionError("fp32 prefill_fn and the decode path disagree")
-    del api32, p32, ref32, plain32, plain, full32, step32, caches
-    torch.cuda.empty_cache()
+    if fp32:
+        from repro_torch.models import build_model
+
+        api32 = build_model(cfg, device=device, dtype="float32")
+        p32 = api32.init(None)
+        p32.load_state_dict(params.state_dict())
+        fp32_prefill_check(api32, p32, batch, patch, xcheck, device,
+                           bf16=(logits, plain))
+        del api32, p32
+        torch.cuda.empty_cache()
 
     # the two serving paths on one xcheck-token prompt, in the bf16 model
+    prompt = batch["tokens"][:1, :xcheck]
+    text = text_prompt(cfg, prompt, device)
     with torch.no_grad():
         full = api.prefill_fn(params, text)
         stepper = Stepper(api)
@@ -1473,7 +1610,60 @@ def prefill_phase(api, params, batch, name, patch, xcheck, device,
     if not rel <= XCHECK_TOL or (a_full != a_step and not gap <= (
             full.float() - step.float()).abs().max().item()):
         raise AssertionError("prefill_fn and the decode path disagree")
-    return counts[name]
+    return counts
+
+
+def text_prompt(cfg, prompt, device):
+    """A prefill batch of the text ``prompt`` (1, n); where the model
+    takes M-RoPE, every stream at the token's position."""
+    text = {"tokens": prompt}
+    if cfg.mrope_sections:
+        n = prompt.shape[1]
+        text["positions3"] = torch.arange(
+            n, dtype=torch.int32, device=device).expand(3, 1, n)
+    return text
+
+
+def fp32_prefill_check(api32, p32, batch, patch, xcheck, device,
+                       bf16=None):
+    """An fp32 model: ``prefill_fn`` on ``batch`` through the kernels
+    against the plain versions (``patch``) at ``PREFILL_TOL_FP32``,
+    without bf16 rounding; with ``bf16`` = (kernel, plain) logits of the
+    bf16 model on the same weights and depth, how far each bf16 path lies
+    from it (the kernel should add no more error than the plain
+    version); then ``prefill_fn`` on the first ``xcheck`` tokens of row
+    0 against scalar token-by-token decode on the dense cache, raw fp32
+    argmax (no bf16 ties)."""
+    prompt = batch["tokens"][:1, :xcheck]
+    text = text_prompt(api32.cfg, prompt, device)
+    with torch.no_grad():
+        ref32 = api32.prefill_fn(p32, batch)
+        plain32 = patched(api32, p32, batch, patch)
+        full32 = api32.prefill_fn(p32, text)
+        caches = api32.init_caches(1, xcheck, tile=BS)
+        for i in range(xcheck):
+            step32, caches = api32.decode_fn(p32, caches, {
+                "tokens": prompt[:, i:i + 1], "cache_len": i})
+    torch.cuda.synchronize()
+    rel32 = normwise(ref32, plain32)
+    vs = "" if bf16 is None else (
+        f"; bf16 vs fp32 evaluation: kernel path normwise "
+        f"{normwise(bf16[0], ref32):.3e}, plain path "
+        f"{normwise(bf16[1], plain32):.3e}")
+    log(f"prefill: fp32 model, {api32.cfg.num_layers} layers, same "
+        f"weights: kernel vs plain versions normwise {rel32:.3e} (tol "
+        f"{PREFILL_TOL_FP32}){vs}")
+    if not rel32 <= PREFILL_TOL_FP32:
+        raise AssertionError("fp32 prefill_fn off its plain versions")
+    a_full, a_step = int(full32[0].argmax()), int(step32[0].argmax())
+    rel = normwise(full32, step32)
+    diff = (full32 - step32).abs().max().item()
+    gap = (full32[0, a_full] - full32[0, a_step]).abs().item()
+    log(f"prefill: fp32 model, {xcheck}-token prompt: prefill_fn argmax "
+        f"{a_full}, scalar token-by-token argmax {a_step}; logits normwise "
+        f"{rel:.3e} (tol {PREFILL_TOL_FP32}), max abs {diff:.3e}")
+    if not rel <= PREFILL_TOL_FP32 or (a_full != a_step and not gap <= diff):
+        raise AssertionError("fp32 prefill_fn and the decode path disagree")
 
 
 KERNEL_FAMILIES = (                # (substring of the kernel name, family)
@@ -2036,11 +2226,11 @@ def dag_check(label, cfg, lm, seq, modes, runs, device, tol=None,
     run in every mode of ``modes`` (``runs`` timed runs each), every run
     launching ``branch_matmul`` once per GEMM site of its schedule.  Each
     mode's logits within ``tol`` of the op-by-op oracle or, with
-    ``tol=None``, bit-identical to ``reference``.  ``unsupported``: the
-    name suffix of the one unsupported node a layer; ``scan``: the
-    ``ssd_scan`` wrapper module, launched once a layer by the oracle and
-    by every run; ``arena``: the ArenaExecutor equals reference too.
-    Returns the schedule's CompileStats."""
+    ``tol=None``, bit-identical to ``reference``.  ``unsupported``: {name
+    suffix: count} of the graph's unsupported nodes; ``scan``: the
+    ``ssd_scan`` wrapper module, launched once a Mamba layer by the
+    oracle and by every run; ``arena``: the ArenaExecutor equals
+    reference too.  Returns the schedule's CompileStats."""
     from repro_torch.core import (ArenaExecutor, ParallaxConfig,
                                   clear_compile_cache, compile_plan,
                                   compile_schedule)
@@ -2052,13 +2242,15 @@ def dag_check(label, cfg, lm, seq, modes, runs, device, tol=None,
     g, make = export_graph(cfg, lm, DAG_BATCH, seq)
     export_s = time.perf_counter() - t0
     n_layers, width = dag_layers(cfg)
-    marked = ""
-    if unsupported:
-        nodes = [n for n in g.nodes.values() if n.name.endswith(unsupported)]
-        if len(nodes) != cfg.num_layers or any(n.supported for n in nodes):
+    n_scans = layer_counts(cfg)[1]
+    marked = []
+    for suffix, count in (unsupported or {}).items():
+        nodes = [n for n in g.nodes.values() if n.name.endswith(suffix)]
+        if len(nodes) != count or any(n.supported for n in nodes):
             raise AssertionError(f"the DAG lacks its unsupported "
-                                 f"{unsupported} nodes")
-        marked = f" ({len(nodes)} unsupported {unsupported} nodes)"
+                                 f"{suffix} nodes")
+        marked.append(f"{len(nodes)} unsupported {suffix} nodes")
+    marked = f" ({', '.join(marked)})" if marked else ""
     budget = torch.cuda.mem_get_info(device)[0]
     t0 = time.perf_counter()
     plan = compile_plan(g, ParallaxConfig(budget=budget))
@@ -2081,8 +2273,9 @@ def dag_check(label, cfg, lm, seq, modes, runs, device, tol=None,
         scan.reset_launches()
     oracle = g.execute(env)[g.outputs[0]]
     torch.cuda.synchronize()
-    if scan and scan.launches["ssd_scan"] != cfg.num_layers:
-        raise AssertionError("the oracle did not run ssd_scan per layer")
+    if scan and scan.launches["ssd_scan"] != n_scans:
+        raise AssertionError("the oracle did not run ssd_scan per Mamba "
+                             "layer")
     if oracle.shape != (DAG_BATCH, seq, width) \
             or not torch.isfinite(oracle).all():
         raise AssertionError("malformed logits")
@@ -2094,8 +2287,9 @@ def dag_check(label, cfg, lm, seq, modes, runs, device, tol=None,
         launched = scan.launches["ssd_scan"]
         log(f"{label}: {launched} ssd_scan launches in {n} runs "
             f"({launched / n:.0f} per run)")
-        if launched != cfg.num_layers * n:
-            raise AssertionError("not one ssd_scan launch per layer per run")
+        if launched != n_scans * n:
+            raise AssertionError("not one ssd_scan launch per Mamba layer "
+                                 "per run")
     ref = res["reference"][0]
     against = "reference" if tol is None else "the oracle"
     for mode, (o, disp, syncs, ms, peak) in res.items():
@@ -2120,6 +2314,13 @@ def dag_check(label, cfg, lm, seq, modes, runs, device, tol=None,
     del g, make, plan, env, res, ref, oracle
     clear_compile_cache()
     return stats
+
+
+def layer_counts(cfg):
+    """(attention, Mamba, MoE) layers of a decoder config."""
+    n = cfg.num_layers
+    attn = sum(cfg.is_attn_layer(i) for i in range(n))
+    return attn, n - attn, sum(cfg.is_moe_layer(i) for i in range(n))
 
 
 def dag_layers(cfg):
@@ -2383,9 +2584,9 @@ def hetero_dag(label, cfg, lm, seq, device, configs, check, scan=None,
             fused(card_env)
             fused_ms.append((time.perf_counter() - t0) * 1e3)
             if scan and scan.launches["ssd_scan"] - before \
-                    != cfg.num_layers:
+                    != layer_counts(cfg)[1]:
                 raise AssertionError(f"{label}: fused parallax did not "
-                                     f"launch ssd_scan once a layer")
+                                     f"launch ssd_scan once a Mamba layer")
         wrappers = [(bm, "branch_matmul", 0)]
         if scan:
             wrappers.append((scan, "ssd_scan", 0))
@@ -2517,11 +2718,10 @@ def ssd_identities(ss, label, args, L, got):
 def ssd_phase(ss, device):
     """ssd_scan against its plain version and the sequential recurrence in
     four cases, bit-identical on a rerun, one batch row alone and a prefix
-    of whole chunks; returns (max abs err, timing at the prefill
-    shape)."""
+    of whole chunks; returns (max abs err, {case label: timing})."""
     rng = np.random.default_rng(4)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
-    worst, timing = 0.0, None
+    worst, timing = 0.0, {}
     for label, b, S, H, G, L, N, strided in SSD_CASES:
         args = ssd_inputs(rng, b, S, H, G, N, device, strided)
         got = ss.ssd_scan(*args, L)
@@ -2554,8 +2754,7 @@ def ssd_phase(ss, device):
             f"algorithm's own count {chunked / 1e9:.3f} GFLOP would take "
             f"{chunked / PEAK_FLOPS[torch.float32] * 1e3:.5f} ms at the "
             f"fp32 peak")
-        if timing is None:
-            timing = t
+        timing[label] = t
         del args, got, again
         torch.cuda.empty_cache()
     del flush
@@ -2601,112 +2800,6 @@ def scan_precision(api, params, ss, device):
                              "inputs")
 
 
-def reuse_requests(vocab):
-    """One slot, two tenants: a 40-token prompt, then a 2-token one (under
-    the conv window: a stale window would reach its stream)."""
-    from repro_torch.runtime.engine import Request
-
-    rng = np.random.default_rng(5)
-    return [Request(i, rng.integers(0, vocab, n).astype(np.int32),
-                    max_new_tokens=16) for i, n in enumerate((40, 2))]
-
-
-def serve_one_slot(api, params, reqs):
-    from repro_torch.runtime.config import EngineConfig
-    from repro_torch.runtime.engine import ContinuousEngine
-
-    eng = ContinuousEngine(api, params, device=api.device,
-                           config=EngineConfig(
-                               hbm_budget=4 << 30, max_batch=1, megastep=8,
-                               block_size=BS, max_context=MAX_CONTEXT))
-    for r in reqs:
-        eng.submit(r)
-    done = eng.run()
-    eng.assert_quiescent()
-    if not all(c.ok for c in done.values()):
-        raise AssertionError("one-slot run: a request failed")
-    return {k: c.tokens for k, c in done.items()}, eng
-
-
-def mamba_serve_phase(api, params, calls, ss):
-    """Phase 11: the 8-request workload through the paged engine at
-    megastep 8 (sharing asked for, and gated off by the per-row state),
-    the dense engine at 8 and 1 and the round engine; streams identical,
-    no ssd_scan launch (decode is the recurrence); then slot reuse and
-    one poisoned megastep."""
-    from repro_torch.runtime.faults import FaultEvent, FaultPlane
-    from repro_torch.runtime.stepper import Stepper
-
-    resets = [0]
-    reset_rows = Stepper.reset_rows
-
-    def counted_reset(self, caches, fresh):
-        resets[0] += 1
-        return reset_rows(self, caches, fresh)
-
-    runs = (("continuous paged, megastep 8", dict(megastep=8)),
-            ("continuous dense, megastep 8", dict(megastep=8, paged=False)),
-            ("continuous dense, megastep 1", dict(megastep=1, paged=False)),
-            ("round engine", None))
-    streams_of = {}
-    Stepper.reset_rows = counted_reset
-    try:
-        for label, knobs in runs:
-            calls[0] = resets[0] = 0
-            ss.reset_launches()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            if knobs is None:
-                streams, eng, wall = serve_round(api, params)
-            else:
-                streams, eng, wall = serve_full_width(api, params,
-                                                      sharing=True, **knobs)
-                if eng.prefix_sharing or eng.spill_enabled:
-                    raise AssertionError("sharing or spill armed for a "
-                                         "model with per-row state")
-            n_tok = sum(len(t) for t in streams.values())
-            log(f"mamba serve: {label}: 8/8 requests, {n_tok} tokens in "
-                f"{wall:.3f} s ({n_tok / wall:.1f} tok/s), {eng.dispatches} "
-                f"dispatches ({eng.dispatches / n_tok:.4f} per token), "
-                f"{resets[0]} reset dispatches, {calls[0]} decode_fn calls, "
-                f"ssd_scan launches {ss.launches['ssd_scan']}, peak device "
-                f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-            if ss.launches["ssd_scan"] or calls[0] == 0:
-                raise AssertionError(f"{label}: ssd_scan launched in decode "
-                                     f"or decode_fn never ran")
-            if knobs is not None and resets[0] == 0:
-                raise AssertionError(f"{label}: no reset dispatch")
-            streams_of[label] = streams
-    finally:
-        Stepper.reset_rows = reset_rows
-    base = streams_of[runs[0][0]]
-    for label, streams in streams_of.items():
-        same = streams == base
-        log(f"mamba serve: {label}: streams "
-            f"{'bit-identical to' if same else 'DIFFER from'} the paged run")
-        if not same:
-            raise AssertionError(f"{label}: streams differ")
-    first, second = reuse_requests(api.cfg.vocab_size)
-    solo, _ = serve_one_slot(api, params, [second])
-    both, eng = serve_one_slot(api, params, [first, second])
-    same = both[1] == solo[1]
-    log(f"mamba serve: one slot, request 1 after request 0: stream "
-        f"{'equal to' if same else 'DIFFERS from'} its solo run "
-        f"({eng.dispatches} dispatches)")
-    if not same:
-        raise AssertionError("slot reuse leaked state")
-    plane = FaultPlane([FaultEvent(3, "poison", rows=(0, 1, 2))])
-    streams, eng, _ = serve_full_width(api, params, 8, True, faults=plane)
-    same = streams == base
-    log(f"mamba serve: poisoned megastep at iteration 3: watchdog trips "
-        f"{eng.watchdog_trips}, megastep fallbacks {eng.megastep_fallbacks}, "
-        f"rows failed {eng.rows_failed}; streams "
-        f"{'bit-identical to' if same else 'DIFFER from'} the clean run")
-    if not (same and eng.megastep_fallbacks == 1 and eng.rows_failed == 0):
-        raise AssertionError("the poisoned megastep did not fall back "
-                             "bit-identically")
-
-
 def mamba_planner_phase(ss, device):
     """Phase 12: the mamba2-370m DAG at full width and depth (fp32), batch
     1, seq 256, through the planner: reference and fused parallax against
@@ -2719,7 +2812,8 @@ def mamba_planner_phase(ss, device):
     lm = build_model(cfg, device=device, dtype="float32").init(
         torch.Generator(device=device).manual_seed(0))
     dag_check("mamba planner", cfg, lm, DAG_SEQ, PLANNER_MODES, MAMBA_RUNS,
-              device, tol=SSD_TOL, unsupported=".ssd_scan", scan=ss)
+              device, tol=SSD_TOL, unsupported={".ssd_scan": cfg.num_layers},
+              scan=ss)
     hetero_dag("hetero E",
                dataclasses.replace(cfg, num_layers=MAMBA_HETERO_LAYERS), lm,
                DAG_SEQ, device, ("MOBILE_CONFIG",), logits_allclose(SSD_TOL),
@@ -2729,12 +2823,38 @@ def mamba_planner_phase(ss, device):
     torch.cuda.empty_cache()
 
 
-def mamba_phases(ss, calls_wrap, device):
+SSM = "repro_torch.models.ssm"    # where mamba_block looks ssd_scan up
+
+
+def scan_readings(ss, chunk):
+    """``prefill_phase`` readings of the scan, each patched in for
+    ``ssd_scan``: the plain version at half the chunk (another sound
+    order of the same sums), and two faults a bf16 model could hide: y
+    rounded to bf16, and the scan run on dt rounded to bf16."""
+    plain = ss.ssd_scan_plain
+
+    def half_chunk(x, dt, A, B, C, chunk):
+        return plain(x, dt, A, B, C, chunk // 2)
+
+    def y_bf16(x, dt, A, B, C, chunk):
+        return plain(x, dt, A, B, C, chunk).bfloat16().float()
+
+    def dt_bf16(x, dt, A, B, C, chunk):      # x, B, C are bf16 values
+        return plain(x, dt.bfloat16().float(), A, B, C, chunk)
+
+    return ((f"the plain scan at chunk {chunk // 2}",
+             ((SSM, "ssd_scan", half_chunk),), False),
+            ("faulty: the plain scan with y rounded to bf16",
+             ((SSM, "ssd_scan", y_bf16),), True),
+            ("faulty: the plain scan on dt rounded to bf16",
+             ((SSM, "ssd_scan", dt_bf16),), True))
+
+
+def mamba_phases(ss, device):
     """Phases 10-13 on mamba2-370m at full width: prefill_fn on ssd_scan,
     the serving engines, the planner DAG, the CLI.  Returns the launches
     of one prefill_fn call (the kernel's main path)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.ssd_scan import ssd_scan_plain
     from repro_torch.models import build_model
 
     cfg = get_config("mamba2-370m")
@@ -2746,27 +2866,12 @@ def mamba_phases(ss, calls_wrap, device):
     log(f"model: {cfg.name} full width, {cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, d_state {cfg.ssm.d_state}, {n_params / 1e6:.1f} M "
         f"params in {api.dtype}, init {time.perf_counter() - t0:.1f} s")
-    def plain_half_chunk(x, dt, A, B, C, chunk):
-        return ssd_scan_plain(x, dt, A, B, C, chunk // 2)
-
-    def plain_y_bf16(x, dt, A, B, C, chunk):
-        return ssd_scan_plain(x, dt, A, B, C, chunk).bfloat16().float()
-
-    def plain_dt_bf16(x, dt, A, B, C, chunk):   # x, B, C are bf16 values
-        return ssd_scan_plain(x, dt.bfloat16().float(), A, B, C, chunk)
-
-    ssm = "repro_torch.models.ssm"
     batch = prefill_tokens(cfg, device)
     launched = prefill_phase(
-        api, params, batch, "ssd_scan",
-        (ssm, "ssd_scan", ssd_scan_plain), MAMBA_XCHECK, device,
-        tol=MAMBA_PREFILL_TOL, readings=(
-            (f"at chunk {cfg.ssm.chunk // 2}",
-             (ssm, "ssd_scan", plain_half_chunk), False),
-            ("faulty: with y rounded to bf16",
-             (ssm, "ssd_scan", plain_y_bf16), True),
-            ("faulty: on dt rounded to bf16",
-             (ssm, "ssd_scan", plain_dt_bf16), True)))
+        api, params, batch, {"ssd_scan": cfg.num_layers},
+        ((SSM, "ssd_scan", ss.ssd_scan_plain),), MAMBA_XCHECK, device,
+        tol=MAMBA_PREFILL_TOL,
+        readings=scan_readings(ss, cfg.ssm.chunk))["ssd_scan"]
     scan_precision(api, params, ss, device)
     step_profile(api, params, device)
     # the bf16 projections at the tensor-core peak plus 48 scans at their
@@ -2785,8 +2890,7 @@ def mamba_phases(ss, calls_wrap, device):
                    (matmul_ms + scan_ms, f"projection ({matmul_ms:.3f} ms) "
                     f"+ scan ({scan_ms:.3f} ms)"),
                    (("ssd_scan", ss.launches),))
-    calls = calls_wrap(api)
-    mamba_serve_phase(api, params, calls, ss)
+    serve_phase(api, params)
     del api, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2843,13 +2947,15 @@ def moe_kernel_phase(bm, device):
     """Phase 14: ``branch_matmul`` in bf16 at the MoE decode path's
     shapes, one projection each, twice: with every row counted (all M)
     and with the counts of a top-k routing of B tokens (the path's);
-    returns (max abs err, timing of one dbrx MoE layer's three launches at
-    decode with the routing's counts).  The prefill shapes are checked at
-    the capacities and counts the prefill runs, in phases 16 and 18."""
+    returns (max abs err, {model: timing of one MoE layer's three
+    launches at decode with the routing's counts}) for dbrx and jamba.
+    The prefill shapes are checked at the capacities and counts the
+    prefill runs, in phases 16, 18 and 37."""
     gen = torch.Generator(device=device).manual_seed(2)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     worst = 0.0
-    layers = {"all rows": {}, "routed": {}}
+    layers = {(model, kind): {} for model in ("dbrx", "jamba")
+              for kind in ("all rows", "routed")}
     for label, G, M, K, N, k in MOE_CASES:
         # outputs of std 0.5, as in branch_phase
         x = torch.randn((G, M, K), generator=gen, device=device,
@@ -2865,15 +2971,20 @@ def moe_kernel_phase(bm, device):
             case = gemm_case(bm, f"MoE {label}, {kind}", x, w, flush,
                              MOE_KERNEL_ITERS, extra, counts)
             worst = max(worst, case["err"])
-            if label.startswith("dbrx"):
-                add_timing(layers[kind], case,
+            model = label.split()[0]
+            if model != "kimi":
+                add_timing(layers[model, kind], case,
                            2 if "gate" in label else 1)      # up too
         del x, w, extra
         torch.cuda.empty_cache()
-    layer_summary("dbrx MoE layer at decode, every row counted (B=8: "
-                  "gate, up, down at capacity 8)", layers["all rows"])
-    timing = layer_summary("dbrx MoE layer at decode, a routing's counts "
-                           "(B=8, top-4 of 16)", layers["routed"])
+    timing = {}
+    for model, k in (("dbrx", 4), ("jamba", 2)):
+        layer_summary(f"{model} MoE layer at decode, every row counted (B=8:"
+                      f" gate, up, down at capacity 8)",
+                      layers[model, "all rows"])
+        timing[model] = layer_summary(
+            f"{model} MoE layer at decode, a routing's counts (B=8, top-{k} "
+            f"of 16)", layers[model, "routed"])
     return worst, timing
 
 
@@ -2960,8 +3071,8 @@ def moe_layer_check(bm, cfg, moe, x, recorded, label, device):
     ``moe_ragged`` through the kernel against the plain GEMM (2e-2, the
     routing equal to the call's ``recorded`` sorted expert ids); then each
     of its three ``branch_matmul`` launches on the layer's weights and
-    bucketed rows, at the dropless capacity the call ran.  Returns the
-    max abs err."""
+    bucketed rows, at the dropless capacity the call ran.  Returns (the
+    max abs err, the three launches' kernels-line timing)."""
     import torch.nn.functional as F
 
     import repro_torch.models.moe as moe_mod
@@ -3021,59 +3132,10 @@ def moe_layer_check(bm, cfg, moe, x, recorded, label, device):
                          counts)
         add_timing(layer, case)
         worst = max(worst, case["err"])
-    layer_summary(f"{cfg.name} MoE layer at prefill (T={x.shape[0]}: gate, "
-                  f"up, down at capacity {b.cap} with the layer's counts)",
-                  layer)
-    return worst
-
-
-def moe_serve_phase(api, params, calls, bm, pa, da, identities=True):
-    """Phases 15 and 18: the 8-request workload through ContinuousEngine
-    (paged, megastep 8, sharing), launch counts zeroed just before and
-    read just after: per decode_fn call three ``branch_matmul`` launches
-    per MoE layer and one of each paged kernel per layer.  With
-    ``identities``, the same streams at megastep 1, sharing off, on the
-    dense cache (N=8 and 1) and, compared, through the round engine.
-    Returns the main run's branch_matmul launches."""
-    cfg = api.cfg
-    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
-    calls[0] = 0
-    bm.reset_launches()
-    pa.reset_launches()
-    da.reset_launches()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    streams, eng, wall = serve_full_width(api, params, 8, True)
-    launched = {**bm.launches, **pa.launches, **da.launches}
-    n_tok = sum(len(t) for t in streams.values())
-    log(f"moe serve: {cfg.name}: 8/8 requests, {n_tok} tokens in "
-        f"{wall:.3f} s ({n_tok / wall:.1f} tok/s), {eng.dispatches} "
-        f"dispatches ({eng.dispatches / n_tok:.4f} per token), "
-        f"{eng.megasteps} megasteps, {calls[0]} decode_fn calls, shared "
-        f"block hits {eng.kv.shared_block_hits}, peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
-        f"{launched}")
-    want = {"branch_matmul": 3 * n_moe * calls[0],
-            "paged_decode_attention": cfg.num_layers * calls[0],
-            "paged_append": cfg.num_layers * calls[0],
-            "decode_attention": 0}
-    if launched != want or calls[0] == 0:
-        raise AssertionError(f"{cfg.name}: launches {launched}, expected "
-                             f"{want}")
-    if eng.kv.shared_block_hits == 0:
-        raise AssertionError("prefix sharing never engaged")
-    if identities:
-        for megastep, sharing in ((1, True), (8, False)):
-            other, e2, w2 = serve_full_width(api, params, megastep,
-                                             sharing)
-            same = other == streams
-            log(f"moe identity: megastep {megastep}, sharing {sharing}: "
-                f"streams {'bit-identical' if same else 'DIFFER'} "
-                f"({w2:.3f} s, {e2.dispatches} dispatches)")
-            if not same:
-                raise AssertionError("greedy streams differ")
-        dense_serve_phase(api, params, calls, streams, pa, da)
-    return launched["branch_matmul"]
+    timing = layer_summary(f"{cfg.name} MoE layer at prefill (T="
+                           f"{x.shape[0]}: gate, up, down at capacity "
+                           f"{b.cap} with the layer's counts)", layer)
+    return worst, timing
 
 
 def moe_prefill_phase(api, params, bm, fa, device):
@@ -3116,8 +3178,8 @@ def moe_prefill_phase(api, params, bm, fa, device):
                              f"flash_attention) {launched}, expected "
                              f"{(3 * n_moe, cfg.num_layers)}")
     first = next(layer for layer in params.layers if layer.kind[1] == "moe")
-    err = moe_layer_check(bm, cfg, first.moe, rec.first_x, rec.calls[0][0],
-                          "layer 0", device)
+    err, _ = moe_layer_check(bm, cfg, first.moe, rec.first_x,
+                             rec.calls[0][0], "layer 0", device)
     rel = normwise(logits, plain)
     same_argmax = torch.equal(logits.argmax(-1), plain.argmax(-1))
     flips = routing_flips(rec, rec_plain)
@@ -3185,7 +3247,7 @@ def moe_fp32_phase(bm, device):
 
     stats = dag_check("moe planner", cfg, lm, MOE_DAG_SEQ, PLANNER_MODES,
                       MAMBA_RUNS, device, tol=PREFILL_TOL_FP32,
-                      unsupported=".router")
+                      unsupported={".router": cfg.num_layers})
     log(f"moe planner: {stats.gemm_sites} GEMM sites: the "
         f"{cfg.moe.num_experts} expert chains a layer run branch by branch "
         f"(their nodes close over their weights and gate/up carries the "
@@ -3251,8 +3313,8 @@ def kimi_phase(bm, pa, da, fa, device):
         raise AssertionError("kimi prefill_fn: malformed logits or "
                              "launches")
     del x, y_k, y_d, logits
-    err = moe_layer_check(bm, cfg, moe, rec.first_x, rec.calls[0][0],
-                          "layer 1", device)
+    err, _ = moe_layer_check(bm, cfg, moe, rec.first_x, rec.calls[0][0],
+                             "layer 1", device)
     del rec
     bound_ms = moe_prefill_flops(cfg, MOE_PREFILL_B, PREFILL_S) \
         / PEAK_FLOPS[torch.bfloat16] * 1e3
@@ -3266,8 +3328,7 @@ def kimi_phase(bm, pa, da, fa, device):
         ("branch_matmul", bm.launches),
         ("paged_decode_attention", pa.launches),
         ("decode_attention", da.launches)))
-    calls = count_calls(api)
-    moe_serve_phase(api, params, calls, bm, pa, da, identities=False)
+    serve_phase(api, params, identities=False)
     del api, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3293,8 +3354,7 @@ def moe_phases(bm, pa, da, fa, device):
         f"d_model {cfg.d_model}, {cfg.moe.num_experts} experts top-"
         f"{cfg.moe.num_experts_per_tok}, {n_params / 1e9:.2f} B params in "
         f"{api.dtype} (router fp32), init {time.perf_counter() - t0:.1f} s")
-    calls = count_calls(api)
-    launched = moe_serve_phase(api, params, calls, bm, pa, da)
+    launched = serve_phase(api, params)[0]["branch_matmul"]
     err = moe_prefill_phase(api, params, bm, fa, device)
     step_profile(api, params, device, (
         ("branch_matmul", bm.launches),
@@ -3718,9 +3778,10 @@ def whisper_phases(da, fa, device, others):
 # phases 28-33: qwen2-vl-2b, the vision-language model (slice 9)
 # --------------------------------------------------------------------------
 
-def qwen_kernel_phase(pa, da, fa, device):
-    """Phase 28: the four attention kernels at qwen2-vl-2b's shapes (GQA
-    12/2, D = 128), in bf16 and fp32, through phase 3's
+def gqa_kernel_phase(pa, da, fa, device, model, H, K, D, tag, seed):
+    """Phases 28 and 37: the four attention kernels at a model's shapes
+    (``H`` query heads on ``K`` KV heads of ``D``: qwen2-vl-2b's 12/2 and
+    jamba-v0.1-52b's 32/8, D = 128), in bf16 and fp32, through phase 3's
     :class:`AttentionCases`: ``flash_attention`` at the prefill (B=2,
     S=T=2048, causal), ``decode_attention`` at the serve phase's (B=8,
     MAX_CONTEXT slots, ragged lengths) with its identities, and
@@ -3728,17 +3789,18 @@ def qwen_kernel_phase(pa, da, fa, device):
     against its plain version and with its identities; ``paged_append``
     (C=1) bit for bit against its plain version.  bf16 timed (medians by
     CUDA events, L2 flushed) beside the bound and the library call.
-    Returns ({name: max abs err}, {PERF.md row: timing})."""
-    H_, K, D_ = QWEN["H"], QWEN["K"], QWEN["D"]
-    rng = np.random.default_rng(9)
+    Returns ({name: max abs err}, {PERF.md row (2-5 and ``tag``):
+    timing})."""
+    H_, D_ = H, D
+    rng = np.random.default_rng(seed)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
     cases = AttentionCases(pa, da, fa, rng, flush)
     err = {"paged_decode_attention": 0.0, "paged_append": 0.0}
     rows, timed = {}, {}
     T = MAX_CONTEXT
     arange = torch.arange(T, dtype=torch.int32, device=device)
-    flash = f"qwen2-vl B={FA_B} {H_}/{K} S=T={PREFILL_S} D={D_} causal"
-    at = f"qwen2-vl B={B} {H_}/{K} D={D_} T={T}, every row at 100"
+    flash = f"{model} B={FA_B} {H_}/{K} S=T={PREFILL_S} D={D_} causal"
+    at = f"{model} B={B} {H_}/{K} D={D_} T={T}, every row at 100"
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype)[6:]
         bf16 = dtype == torch.bfloat16
@@ -3749,7 +3811,7 @@ def qwen_kernel_phase(pa, da, fa, device):
         # the decode kernels: a dense cache and a pool of the same K/V
         q, k, v, lens = dense_decode_case(rng, B, H_, K, D_, T, dtype,
                                           device)
-        label = f"qwen2-vl B={B} {H_}/{K} D={D_} T={T} ragged"
+        label = f"{model} B={B} {H_}/{K} D={D_} T={T} ragged"
         cases.dec(label, q, k, v, arange, lens, 0)
         pools, tables = cases.dec_identities(q, k, v, lens, (0,))
         paged = pa.paged_decode_attention(q, *pools, tables, lens)
@@ -3765,9 +3827,9 @@ def qwen_kernel_phase(pa, da, fa, device):
         if bf16:
             at100 = torch.full((B,), 100, dtype=torch.int32, device=device)
             cases.dec(at, q, k, v, arange, at100, 0, timed=timed)
-            rows["4v"] = paged_timing(pa, at, q, *pools, tables, at100, 0,
-                                      flush)
-            rows["4v"]["library_ms"] = None
+            rows[f"4{tag}"] = paged_timing(pa, at, q, *pools, tables,
+                                           at100, 0, flush)
+            rows[f"4{tag}"]["library_ms"] = None
         del q, k, v, pools, paged
 
         # paged_append, the decode step's C = 1
@@ -3777,7 +3839,7 @@ def qwen_kernel_phase(pa, da, fa, device):
         pa.paged_append(k1, v1, kn, vn, tables, lens, nv)
         pa.paged_append_plain(k2, v2, kn, vn, tables, lens, nv)
         torch.cuda.synchronize()
-        identical("paged_append", f"qwen2-vl B={B} C=1 K={K} D={D_} {dt}, "
+        identical("paged_append", f"{model} B={B} C=1 K={K} D={D_} {dt}, "
                   f"n_valid {nv.tolist()}: pools vs the plain version",
                   torch.stack([k1, v1]), torch.stack([k2, v2]))
         if bf16:
@@ -3788,12 +3850,12 @@ def qwen_kernel_phase(pa, da, fa, device):
                          k2, v2, kn, vn, tables, lens, nv), flush),
                      bound=(nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
                      library_ms=None)
-            log(f"paged_append qwen2-vl B={B} C=1 K={K} D={D_} {dt}: kernel "
+            log(f"paged_append {model} B={B} C=1 K={K} D={D_} {dt}: kernel "
                 f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
                 f"{t['bound'][0]:.6f} ms (bytes)")
-            rows["5v"] = t
+            rows[f"5{tag}"] = t
         del k1, v1, k2, v2
-    rows["2v"], rows["3v"] = timed[flash], timed[at]
+    rows[f"2{tag}"], rows[f"3{tag}"] = timed[flash], timed[at]
     del flush
     torch.cuda.empty_cache()
     return err | cases.err, rows
@@ -3851,14 +3913,15 @@ def qwen_prefill_phase(api, params, fa, device):
                                         v.repeat(1, G, 1, 1), causal, window)
 
     launched = prefill_phase(
-        api, params, batch, "flash_attention",
-        (FLASH_MODULE, "flash_attention", fa.flash_attention_plain),
+        api, params, batch, {"flash_attention": cfg.num_layers},
+        ((FLASH_MODULE, "flash_attention", fa.flash_attention_plain),),
         XCHECK_PROMPT, device, readings=(
             (f"faulty: M-RoPE sections {reverse}",
-             ("repro_torch.models.attention", "apply_mrope", misordered),
+             (("repro_torch.models.attention", "apply_mrope", misordered),),
              True),
             ("faulty: query head h on KV head h % K",
-             (FLASH_MODULE, "flash_attention", heads_interleaved), True)))
+             ((FLASH_MODULE, "flash_attention", heads_interleaved),),
+             True)))["flash_attention"]
     device_profile(
         f"{cfg.name} prefill_fn (B={PREFILL_B}, S={PREFILL_S})",
         lambda: api.prefill_fn(params, batch), 3,
@@ -3877,7 +3940,7 @@ def qwen_serve_phase(api, params, pa, da, device):
     bit-identical to the call without them, paged and dense; profiles of
     a decode step.  Returns the paged launches of one call."""
     cfg = api.cfg
-    launched, n_calls = serve_phase(api, params, pa, da)
+    launched, n_calls = serve_phase(api, params)
     log(f"qwen2-vl dense: {launched.pop('decode_attention')} "
         f"decode_attention launches in the three dense runs")
 
@@ -3902,7 +3965,7 @@ def qwen_serve_phase(api, params, pa, da, device):
     step_profile(api, params, device, (
         ("paged_decode_attention", pa.launches),
         ("decode_attention", da.launches)))
-    return {k: v // n_calls for k, v in launched.items()}
+    return {k: v // n_calls for k, v in launched.items() if v}
 
 
 def qwen_train_phase(api, params, fa, ss, bm, device):
@@ -3964,7 +4027,8 @@ def qwen_phases(pa, da, fa, ss, bm, device):
     from repro_torch.models import build_model
 
     t_phase = time.perf_counter()
-    err, rows = qwen_kernel_phase(pa, da, fa, device)
+    err, rows = gqa_kernel_phase(pa, da, fa, device, "qwen2-vl", tag="v",
+                                 seed=9, **QWEN)
     cfg = get_config("qwen2-vl-2b")
     t0 = time.perf_counter()
     api = build_model(cfg, device=device)
@@ -4291,6 +4355,188 @@ def distributed_phases(fa, bm, device):
         pred, fa, device)
     log(f"distributed phases: {time.perf_counter() - t_phase:.1f} s")
     return launches, err
+
+
+# --------------------------------------------------------------------------
+# phases 37-40: jamba-v0.1-52b, the hybrid (slice 11)
+# --------------------------------------------------------------------------
+
+JAMBA = dict(H=32, K=8, D=128)     # GQA 32/8 heads of 128
+JAMBA_LAYERS = 16                  # of 32: two periods, 25.998 B params
+JAMBA_FP32_LAYERS = 5              # layers 0-4 hold every block kind
+JAMBA_DAG_SEQ = 256
+JAMBA_HETERO_LAYERS = 5            # hetero H's depth (of the DAG's 5)
+MOE_MODULE = "repro_torch.models.moe"   # where moe_ragged looks up its GEMM
+
+
+def hybrid_prefill_bound(cfg, params, Bn, S):
+    """The least time of one prefill_fn call of a hybrid: its matrix
+    products at the bf16 tensor-core peak (every layer weight but the
+    experts over every token, k routed experts a token in an MoE layer,
+    causal attention, the head on the last token) plus each Mamba
+    layer's scan at its fp32 bound (:func:`ssd_bound`).  Returns (ms,
+    what)."""
+    attn, mamba, _ = layer_counts(cfg)
+    m = cfg.moe
+    T = Bn * S
+    dense = sum(p.numel() for layer in params.layers
+                for n, p in layer.named_parameters()
+                if not n.startswith("moe.w_") and p.dim() == 2)
+    flops = 2 * T * dense + 2 * Bn * cfg.d_model * cfg.vocab_size
+    flops += layer_counts(cfg)[2] * 2 * T * m.num_experts_per_tok * 3 \
+        * cfg.d_model * m.d_ff_expert
+    flops += attn * 4 * Bn * cfg.num_heads * cfg.resolved_head_dim() \
+        * flash_pairs(S, S, True, 0)
+    gemm_ms = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    di = cfg.ssm.expand * cfg.d_model
+    scan_ms = mamba * ssd_bound(Bn, S, di // cfg.ssm.head_dim,
+                                cfg.ssm.n_groups, cfg.ssm.d_state)[0]
+    return (gemm_ms + scan_ms, f"matrix-product ({gemm_ms:.3f} ms) + scan "
+            f"({scan_ms:.3f} ms)")
+
+
+def jamba_prefill_phase(api, params, fa, ss, bm, device):
+    """Phase 38: :func:`prefill_phase` at B=2, S=2048 through all three
+    prefill kernels (2 ``flash_attention``, 14 ``ssd_scan`` and 24
+    ``branch_matmul`` launches a call, no other kernel), the logits
+    against the plain versions at ``JAMBA_PREFILL_TOL``, with each
+    kernel alone (the others plain) and the plain scan at half its chunk
+    as sound readings, each kernel's planted fault (:func:`faulty_kernels`,
+    the others plain) and :func:`scan_readings`' two bf16 roundings of the
+    plain scan as faulty ones; the first
+    MoE layer at its own inputs (:func:`moe_layer_check`); a profile of
+    the call.  Returns (launches a call, the MoE checks' max abs err,
+    the prefill layer's timing)."""
+    cfg = api.cfg
+    plain = ((FLASH_MODULE, "flash_attention", fa.flash_attention_plain),
+             (SSM, "ssd_scan", ss.ssd_scan_plain),
+             (MOE_MODULE, "branch_matmul", bm.branch_matmul_plain))
+    faults = dict(zip(("flash_attention", "ssd_scan", "branch_matmul"),
+                      faulty_kernels(fa, ss, bm)))
+    readings = []
+    for mod, attr, _ in plain:
+        others = tuple(s for s in plain if s[1] != attr)
+        readings += [(f"the {attr} kernel, the others plain", others, False),
+                     (f"faulty: {attr} with its planted fault, the others "
+                      f"plain", others + ((mod, attr, faults[attr]),), True)]
+    readings += [(label + ", the others plain", plain + swaps, faulty)
+                 for label, swaps, faulty in scan_readings(ss,
+                                                           cfg.ssm.chunk)]
+    batch = prefill_tokens(cfg, device)
+    attn, mamba, moe = layer_counts(cfg)
+    want = {"flash_attention": attn, "ssd_scan": mamba,
+            "branch_matmul": 3 * moe}
+    counts = prefill_phase(api, params, batch, want, plain, MAMBA_XCHECK,
+                           device, tol=JAMBA_PREFILL_TOL, readings=readings,
+                           fp32=False)
+    with torch.no_grad(), RoutingRecorder() as rec:
+        api.prefill_fn(params, batch)
+    first = next(i for i in range(cfg.num_layers) if cfg.is_moe_layer(i))
+    err, timing = moe_layer_check(bm, cfg, params.layers[first].moe,
+                                  rec.first_x, rec.calls[0][0],
+                                  f"layer {first}", device)
+    del rec
+    free()
+    device_profile(f"{cfg.name} prefill_fn (B={PREFILL_B}, S={PREFILL_S})",
+                   lambda: api.prefill_fn(params, batch), 1,
+                   hybrid_prefill_bound(cfg, params, PREFILL_B, PREFILL_S),
+                   (("flash_attention", fa.launches),
+                    ("ssd_scan", ss.launches),
+                    ("branch_matmul", bm.launches)))
+    return {k: v for k, v in counts.items() if v}, err, timing
+
+
+def jamba_phases(pa, da, fa, ss, bm, device):
+    """Phases 37-40: jamba-v0.1-52b at full width (d_model 4096, GQA 32/8
+    heads of 128, Mamba H=128, P=64, N=16, 16 experts top-2, bf16,
+    random weights from ``torch.Generator`` seed 0), ``JAMBA_LAYERS`` of
+    its 32 layers: 37. the attention kernels at its shapes; 38. prefill
+    (:func:`jamba_prefill_phase`); 39. the serving engines
+    (:func:`serve_phase`: paged, dense, round, slot reuse, a poisoned
+    megastep) and a decode-step profile; 40. an fp32 model of its first
+    ``JAMBA_FP32_LAYERS`` layers (the bf16 model freed first, its weights
+    carried over through the host): prefill against the plain versions
+    (:func:`fp32_prefill_check`), the DAG through the planner and hetero
+    H (scans and routers on the host).  Returns ({kernels-line row:
+    timing}, {name: max abs err}, launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    err, rows = gqa_kernel_phase(pa, da, fa, device, "jamba", tag="j",
+                                 seed=10, **JAMBA)
+    free()
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                              num_layers=JAMBA_LAYERS)
+    t0 = time.perf_counter()
+    api = build_model(cfg, device=device)
+    params = api.init(torch.Generator(device=device).manual_seed(0))
+    n_params = sum(p.numel() for p in params.parameters())
+    torch.cuda.synchronize()
+    attn, mamba, moe = layer_counts(cfg)
+    log(f"model: {cfg.name} full width, {cfg.num_layers} of 32 layers "
+        f"({attn} attention, {mamba} Mamba, {moe} MoE), d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.num_experts_per_tok},"
+        f" {n_params / 1e9:.3f} B params in {api.dtype} (ModelConfig."
+        f"param_count {cfg.param_count() / 1e9:.3f} B), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches = {}
+    launches["prefill_fn"], err["branch_matmul"], rows["1j prefill"] = \
+        jamba_prefill_phase(api, params, fa, ss, bm, device)
+    launched, n_calls = serve_phase(api, params)
+    launches["decode_fn paged"] = {k: v // n_calls for k, v in
+                                   launched.items() if v and
+                                   k != "decode_attention"}
+    step_profile(api, params, device, (
+        ("branch_matmul", bm.launches),
+        ("paged_decode_attention", pa.launches),
+        ("decode_attention", da.launches)))
+    launches["decode_fn dense"] = {
+        k: v for k, v in decode_launches(cfg, 1, paged=False).items() if v}
+    launches["serve run"] = launched
+    t_serve = time.perf_counter()
+
+    # the fp32 evaluation: an fp32 copy of 16 layers (104 GB) does not fit
+    # the card; the first layers carry every block kind
+    keep = {k: v.detach().cpu() for k, v in params.state_dict().items()
+            if not k.startswith("layers.")
+            or int(k.split(".")[1]) < JAMBA_FP32_LAYERS}
+    batch = prefill_tokens(cfg, device)
+    del api, params
+    free()
+    cfg32 = dataclasses.replace(cfg, num_layers=JAMBA_FP32_LAYERS)
+    api32 = build_model(cfg32, device=device, dtype="float32")
+    p32 = api32.init(None)
+    p32.load_state_dict(keep)
+    del keep
+    a32, m32, moe32 = layer_counts(cfg32)
+    log(f"model: {cfg.name} fp32, layers 0-{JAMBA_FP32_LAYERS - 1} ({a32} "
+        f"attention, {m32} Mamba, {moe32} MoE), "
+        f"{sum(p.numel() for p in p32.parameters()) / 1e9:.3f} B params, "
+        f"the bf16 model's weights widened")
+    fp32_prefill_check(api32, p32, batch, (
+        (FLASH_MODULE, "flash_attention", fa.flash_attention_plain),
+        (SSM, "ssd_scan", ss.ssd_scan_plain),
+        (MOE_MODULE, "branch_matmul", bm.branch_matmul_plain)),
+        MAMBA_XCHECK, device)
+    del batch
+    t_dag = time.perf_counter()
+    dag_check("jamba DAG", cfg32, p32, JAMBA_DAG_SEQ, PLANNER_MODES,
+              MAMBA_RUNS, device, tol=SSD_TOL,
+              unsupported={".ssd_scan": m32, ".router": moe32}, scan=ss)
+    t_hetero = time.perf_counter()
+    cfg_h = dataclasses.replace(cfg, num_layers=JAMBA_HETERO_LAYERS)
+    hetero_dag("hetero H", cfg_h, p32, JAMBA_DAG_SEQ, device,
+               ("MOBILE_CONFIG",), logits_allclose(SSD_TOL), scan=ss,
+               dynamic=layer_counts(cfg_h)[2])
+    del api32, p32
+    free()
+    t_end = time.perf_counter()
+    log(f"jamba phases: {t_end - t_phase:.1f} s (to the serve runs' end "
+        f"{t_serve - t_phase:.1f}, fp32 prefill {t_dag - t_serve:.1f}, DAG "
+        f"{t_hetero - t_dag:.1f}, hetero H {t_end - t_hetero:.1f})")
+    return rows, err, launches
 
 
 # --------------------------------------------------------------------------
@@ -4842,6 +5088,27 @@ def training_phases(fa, ss, bm, device):
     return rows, launches
 
 
+def serve_example_phase(da):
+    """Phase 7b: ``examples/torch_serve_requests.py`` on the card
+    (h2o-danube-3-4b reduced through the round engine under a tight
+    §3.3 budget), its ``decode_attention`` launches counted."""
+    import importlib.util
+
+    path = os.path.join(HERE, "examples", "torch_serve_requests.py")
+    spec = importlib.util.spec_from_file_location("torch_serve_requests",
+                                                  path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    da.reset_launches()
+    done = example.main([])
+    n = da.launches["decode_attention"]
+    log(f"example: examples/torch_serve_requests.py on the card: "
+        f"{len(done)} requests, {n} decode_attention launches")
+    if len(done) != 9 or not all(c.ok for c in done.values()) or n == 0:
+        raise AssertionError("the serve example did not complete on the "
+                             "kernels")
+
+
 def count_calls(api):
     """Wrap ``api.decode_fn`` with a call counter; returns the counter."""
     calls = [0]
@@ -4890,7 +5157,8 @@ def main() -> int:
     timing.update(t2)
     for name, e in whisper_kernel_phase(da, fa, device).items():
         err[name] = max(err[name], e)
-    err["ssd_scan"], timing["ssd_scan"] = ssd_phase(ss, device)
+    err["ssd_scan"], ssd_timing = ssd_phase(ss, device)
+    timing["ssd_scan"] = ssd_timing["prefill shape"]
 
     # phase 4: the main path at full width
     cfg = get_config("stablelm-3b")
@@ -4902,11 +5170,12 @@ def main() -> int:
     log(f"model: {cfg.name} full width, {cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, {n_params / 1e9:.3f} B params in {api.dtype}, "
         f"init {time.perf_counter() - t0:.1f} s")
-    main_launches, _ = serve_phase(api, params, pa, da)
+    main_launches, _ = serve_phase(api, params)
     main_launches["flash_attention"] = prefill_phase(
-        api, params, prefill_tokens(cfg, device), "flash_attention",
-        (FLASH_MODULE, "flash_attention", fa.flash_attention_plain),
-        XCHECK_PROMPT, device)
+        api, params, prefill_tokens(cfg, device),
+        {"flash_attention": cfg.num_layers},
+        ((FLASH_MODULE, "flash_attention", fa.flash_attention_plain),),
+        XCHECK_PROMPT, device)["flash_attention"]
     step_profile(api, params, device, (
         ("paged_decode_attention", pa.launches),
         ("decode_attention", da.launches)))
@@ -4928,16 +5197,18 @@ def main() -> int:
             f"--requests 4 --max-new 8")
         serve_main(argv + ["--requests", "4", "--max-new", "8"])
 
+    serve_example_phase(da)
     gc.collect()                   # the CLI's model, before the planner
     torch.cuda.empty_cache()
     planner_kernel_path(bm, device)
     h100_profile_phase(device)
     hetero_zoo_phase(bm, device)
     planner_model_dag(device)
-    main_launches["ssd_scan"] = mamba_phases(ss, count_calls, device)
+    main_launches["ssd_scan"] = mamba_phases(ss, device)
     gc.collect()
     torch.cuda.empty_cache()
-    e_moe, timing["branch_matmul"] = moe_kernel_phase(bm, device)
+    e_moe, moe_timing = moe_kernel_phase(bm, device)
+    timing["branch_matmul"] = moe_timing["dbrx"]
     main_launches["branch_matmul"], e_prefill = moe_phases(bm, pa, da, fa,
                                                            device)
     err["branch_matmul"] = max(err["branch_matmul"], e_moe, e_prefill)
@@ -4956,6 +5227,16 @@ def main() -> int:
             f"{t['bound'][0]:.6f} ms ({t['bound'][1]})")
     gc.collect()
     torch.cuda.empty_cache()
+    jamba_rows, jamba_err, jamba_launches = jamba_phases(pa, da, fa, ss, bm,
+                                                         device)
+    jamba_rows["1j decode"] = moe_timing["jamba"]
+    jamba_rows["6j"] = ssd_timing["jamba shape"]
+    for row, t in sorted(jamba_rows.items()):
+        log(f"jamba kernel row {row}: {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, library {t.get('library_ms')}, bound "
+            f"{t['bound'][0]:.6f} ms ({t['bound'][1]})")
+    gc.collect()
+    torch.cuda.empty_cache()
     dist_launches, dist_err = distributed_phases(fa, bm, device)
     err["branch_matmul"] = max(err["branch_matmul"], dist_err)
     grad_rows, grad_launches = training_phases(fa, ss, bm, device)
@@ -4970,6 +5251,32 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                      "bound_by": t["bound"][1],
                      "library_ms": t.get("library_ms")})
+    # the kernels at jamba-v0.1-52b's shapes: launches from its runs
+    serve_run = jamba_launches["serve run"]
+    for row, name, e, n in (
+            ("1j decode", "branch_matmul", jamba_err["branch_matmul"],
+             serve_run["branch_matmul"]),
+            ("1j prefill", "branch_matmul", jamba_err["branch_matmul"],
+             jamba_launches["prefill_fn"]["branch_matmul"]),
+            ("2j", "flash_attention", jamba_err["flash_attention"],
+             jamba_launches["prefill_fn"]["flash_attention"]),
+            ("3j", "decode_attention", jamba_err["decode_attention"],
+             serve_run["decode_attention"]),
+            ("4j", "paged_decode_attention",
+             jamba_err["paged_decode_attention"],
+             serve_run["paged_decode_attention"]),
+            ("5j", "paged_append", jamba_err["paged_append"],
+             serve_run["paged_append"]),
+            ("6j", "ssd_scan", err["ssd_scan"],
+             jamba_launches["prefill_fn"]["ssd_scan"])):
+        t, meta = jamba_rows[row], KERNELS[name]
+        suffix = "_jamba" + row[2:].replace(" ", "_")
+        rows.append({"name": name + suffix, "route": "cuda",
+                     "source": meta["source"], "replaces": meta["replaces"],
+                     "launches": n, "max_abs_err": e, "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                     "bound_by": t["bound"][1],
+                     "library_ms": t.get("library_ms")})
     for name, (e, t) in grad_rows.items():
         meta = KERNELS[name[:-len("_grad")]]
         rows.append({"name": name, "route": "cuda", "source": meta["source"],
@@ -4981,6 +5288,8 @@ def main() -> int:
     print("whisper launches per call: " + json.dumps(whisper_launches))
     print("qwen2-vl launches per call: " + json.dumps(qwen_launches))
     print("distributed launches per call: " + json.dumps(dist_launches))
+    print("jamba launches per call: " + json.dumps(
+        {k: v for k, v in jamba_launches.items() if k != "serve run"}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -33,11 +33,15 @@ def loss_and_grads(api, params, batch):
 
 def _slice(v, i: int, n: int):
     """Microbatch ``i`` of ``n``: rows ``i*B/n`` to ``(i+1)*B/n`` of the
-    leading dim.  A DTensor batch (the dry-run's) takes the same rows of
-    each rank's shard, so no row moves between ranks."""
+    leading dim, which must split evenly (JAX's reshape to ``(n, B // n)``
+    raises otherwise).  A DTensor batch (the dry-run's) takes the same
+    rows of each rank's shard, so no row moves between ranks."""
     from torch.distributed.tensor import DTensor
 
     if not isinstance(v, DTensor):
+        if len(v) % n:
+            raise ValueError(f"{len(v)} rows do not split into {n} "
+                             f"microbatches")
         rows = len(v) // n
         return v[i * rows:(i + 1) * rows]
     loc = v.to_local()
@@ -60,11 +64,19 @@ def make_train_step(api, opt_cfg: "OptConfig | None" = None,
     is split on its leading dim and run slice by slice, dividing peak
     activation memory by the microbatch count.  Gradients accumulate in
     fp32, in slice order, then divide by the count; the loss and metrics
-    are the slices' means, as in JAX.
+    are the slices' means, as in JAX.  A leading dim that does not split
+    evenly raises ``ValueError``, as JAX's reshape does, and so does a
+    batch with M-RoPE ``positions3``: JAX would cut its (3, B, S) stream
+    axis, and splitting on its batch axis is not what JAX does.
     """
     opt_cfg = opt_cfg or OptConfig()
 
     def train_step(params, opt_state, batch):
+        if microbatches > 1 and "positions3" in batch:
+            # JAX splits every leaf on its leading dim, which for the
+            # (3, B, S) M-RoPE streams is the stream axis
+            raise ValueError("M-RoPE positions3 (3, B, S) do not split "
+                             "into microbatches")
         if microbatches == 1:
             loss, metrics, grads = loss_and_grads(api, params, batch)
         else:

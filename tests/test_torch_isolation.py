@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, no ``repro``, no silent CPU fallback.
 
 * An AST scan of ``src/repro_torch/`` (the training side among it:
-  ``training/``, ``data/``, ``launch/train.py``) and
-  ``tests/torch_graph_zoo.py`` finds no import of ``jax`` or of the JAX
+  ``training/``, ``data/``, ``launch/train.py``), ``chip_smoke.py``,
+  ``tests/torch_graph_zoo.py``, ``examples/torch_*.py`` and
+  ``benchmarks/torch_*.py`` finds no import of ``jax`` or of the JAX
   package ``repro``.
 * A subprocess imports every module of ``repro_torch``, and the torch
   graph zoo, with ``jax`` and ``repro`` blocked in ``sys.modules``.
@@ -28,8 +29,9 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-PKG = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
-ZOO = pathlib.Path(__file__).resolve().parent / "torch_graph_zoo.py"
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+ZOO = ROOT / "tests" / "torch_graph_zoo.py"
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -44,13 +46,19 @@ def _imported_modules(path: pathlib.Path):
 
 
 def test_no_jax_or_repro_import_in_the_port():
-    files = sorted(PKG.rglob("*.py")) + [ZOO]
-    assert len(files) > 40
-    scanned = {f.relative_to(PKG).as_posix() for f in files[:-1]}
+    package = sorted(PKG.rglob("*.py"))
+    drivers = ([ROOT / "chip_smoke.py", ZOO]
+               + sorted((ROOT / "examples").glob("torch_*.py"))
+               + sorted((ROOT / "benchmarks").glob("torch_*.py")))
+    assert len(package) > 40
+    scanned = {f.relative_to(PKG).as_posix() for f in package}
     assert {"training/optimizer.py", "training/train_step.py",
             "training/checkpoint.py", "data/pipeline.py",
             "launch/train.py"} <= scanned
-    bad = [(f.name, m) for f in files
+    assert {"torch_serve_requests.py", "torch_parallax_analysis.py",
+            "torch_quickstart.py", "torch_kernel_variants.py"} \
+        <= {f.name for f in drivers}
+    bad = [(f.name, m) for f in package + drivers
            for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad

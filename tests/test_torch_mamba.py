@@ -1,10 +1,15 @@
 """Mamba2 in the port against the JAX package, on bridged parameters.
 
 Models: ``mamba2-370m.reduced()`` (2 Mamba2 layers, d_model 256, head
-dim 16, d_state 16, chunk 8, fp32, no channel mix) and a hybrid —
+dim 16, d_state 16, chunk 8, fp32, no channel mix) and two hybrids —
 ``jamba-v0.1-52b.reduced()`` with ``moe=MoEConfig()`` (a Mamba layer
 with a dense MLP, then an attention layer), so that mixed caches are
-covered — initialised by the JAX package and bridged into the port.
+covered, and ``jamba-moe``, Jamba's interleave with its MoE kept at
+reduced widths (4 layers: Mamba + dense MLP, Mamba + MoE, attention +
+dense MLP, Mamba + MoE; 4 experts top-2) — initialised by the JAX
+package and bridged into the port.  One more test holds the 16-layer
+Jamba at ``structural()`` widths (JAX's scan period of 8 blocks, twice;
+16 experts, so the port's ``moe_ragged``) to JAX's prefill.
 
 * the mixer: ``_causal_conv``, ``mamba_block`` (fp32 and bf16) and
   ``mamba_decode_step`` against JAX's; within the port, step-by-step
@@ -47,7 +52,7 @@ import numpy as np  # noqa: E402
 FP32 = dict(rtol=2e-5, atol=2e-5)
 SCAN = dict(rtol=2e-4, atol=2e-4)
 BF16 = dict(rtol=2e-2, atol=2e-2)
-ARCHS = ("mamba2-370m", "jamba-hybrid")
+ARCHS = ("mamba2-370m", "jamba-hybrid", "jamba-moe")
 MAX_BATCH, BLOCK, MAX_CONTEXT = 3, 4, 32
 
 
@@ -57,6 +62,13 @@ def _config(configs, arch):
         return dataclasses.replace(
             configs.get_config("jamba-v0.1-52b").reduced(),
             moe=configs.MoEConfig())
+    if arch == "jamba-moe":
+        # Jamba's own interleave at reduced widths: Mamba + dense MLP,
+        # Mamba + MoE, attention + dense MLP, Mamba + MoE
+        red = configs.get_config("jamba-v0.1-52b").reduced()
+        return dataclasses.replace(
+            red, num_layers=4, attn_period=4, attn_offset=2,
+            moe=dataclasses.replace(red.moe, layer_freq=2, layer_offset=1))
     return configs.get_config(arch).reduced()
 
 
@@ -89,6 +101,9 @@ RUNS = [
     ("hybrid-dense-1", "jamba-hybrid", "continuous",
      dict(megastep=1, paged=False)),
     ("hybrid-round-32", "jamba-hybrid", "round", dict()),
+    ("moe-paged-8", "jamba-moe", "continuous", dict(megastep=8)),
+    ("moe-dense-1", "jamba-moe", "continuous", dict(megastep=1, paged=False)),
+    ("moe-round-32", "jamba-moe", "round", dict()),
 ]
 
 
@@ -296,6 +311,45 @@ def test_prefill_matches_jax(bridged, arch):
         tapi.prefill_fn(tparams, {"tokens": torch.tensor(tokens[:, :20])})
 
 
+def test_jamba_16_layers_structural_matches_jax():
+    """jamba-v0.1-52b at 16 layers and ``structural()`` widths: JAX keeps
+    its period of 8 blocks stacked twice.  The bridge carries the pytree
+    into the port's flat layers and back bit for bit, and prefill (2
+    attention, 14 Mamba and 8 MoE layers of 16 experts) matches JAX's."""
+    import jax
+
+    from repro import configs as jax_configs
+    from repro.models import build_model as jax_build_model
+    from repro.models.transformer import structure
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.models.bridge import numpy_from_params, params_from_numpy
+
+    def config(c):
+        return dataclasses.replace(
+            c.get_config("jamba-v0.1-52b").structural(), num_layers=16)
+
+    jcfg, cfg = config(jax_configs), config(configs)
+    assert structure(jcfg)[1:] == (0, 8, 2)      # no prefix, 8 x 2
+    japi = jax_build_model(jcfg)
+    jparams = japi.init(jax.random.key(0))
+    tree = jax.tree.map(np.asarray, jparams)
+    tapi = build_model(cfg, device="cpu")
+    tparams = params_from_numpy(cfg, tree, device="cpu")
+    assert [layer.kind for layer in tparams.layers] == [
+        ("attn" if cfg.is_attn_layer(i) else "mamba",
+         "moe" if cfg.is_moe_layer(i) else "dense") for i in range(16)]
+    back = numpy_from_params(cfg, tparams)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    tokens = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    got = tapi.prefill_fn(tparams, {"tokens": torch.tensor(tokens)})
+    want = japi.prefill_fn(jparams, {"tokens": tokens})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **SCAN)
+
+
 def _jax_layers(jcaches, n_layers):
     """JAX caches (prefix list + stacked period) -> one dict per layer."""
     import jax
@@ -438,8 +492,9 @@ def test_engines_match_jax(jax_reference, bridged):
     assert launches == before                      # decode runs no scan
     for key in ("paged-1", "dense-8", "dense-1", "round-32", "round-None"):
         assert streams[key] == streams["paged-8"], key
-    assert streams["hybrid-dense-1"] == streams["hybrid-paged-8"] \
-        == streams["hybrid-round-32"]
+    for tag in ("hybrid", "moe"):
+        assert streams[f"{tag}-dense-1"] == streams[f"{tag}-paged-8"] \
+            == streams[f"{tag}-round-32"], tag
 
 
 @pytest.mark.parametrize("paged", [True, False])

@@ -138,6 +138,72 @@ def test_microbatched_grads_match_full_batch():
     assert err < 2e-4, f"microbatched update diverges: {err}"
 
 
+def test_uneven_microbatches_raise_as_jax_does():
+    """8 rows do not split into 3 microbatches: JAX's reshape raises, and
+    so does the port, where it once trained on the first 6 rows."""
+    api, params, state, opt_cfg, batch = _setup()
+    with pytest.raises(ValueError, match="do not split into 3"):
+        make_train_step(api, opt_cfg, microbatches=3)(params, state, batch)
+    japi = jax_build_model(jax_get_config("stablelm-3b").reduced())
+    jp = japi.init(jax.random.key(0))
+    jopt = JaxOptConfig(lr=1e-3, warmup_steps=1)
+    with pytest.raises(TypeError):
+        jax_train_step(japi, jopt, microbatches=3)(
+            jp, jax_init_opt(jp, jopt), jax_batch(
+                {k: v.numpy() for k, v in batch.items()}))
+
+
+def test_mrope_batch_does_not_split_into_microbatches():
+    """A Qwen2-VL batch carries positions3 (3, B, S).  JAX splits every
+    leaf on its leading dim, so at n=2 its reshape of the streams raises;
+    the port raises for any n > 1 and names M-RoPE."""
+    from repro.models.model import stub_vision_frontend as jax_stub
+    from repro_torch.models import stub_vision_frontend
+
+    Bq, Sq = 2, 16
+    cfg = get_config("qwen2-vl-2b").reduced()
+    api = build_model(cfg, device="cpu")
+    params = api.init(torch.Generator().manual_seed(0))
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=1)
+    emb, pos3 = stub_vision_frontend(torch.Generator().manual_seed(1), cfg,
+                                     Bq, Sq)
+    toks = torch.randint(0, cfg.vocab_size,
+                         (Bq, Sq - cfg.num_frontend_tokens),
+                         generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32)
+    batch = {"tokens": toks, "labels": toks, "frontend_embeds": emb,
+             "positions3": pos3}
+    for n in (2, 3):
+        with pytest.raises(ValueError, match="M-RoPE"):
+            make_train_step(api, opt_cfg, microbatches=n)(
+                params, init_opt_state(params, opt_cfg), batch)
+
+    jcfg = jax_get_config("qwen2-vl-2b").reduced()
+    japi = jax_build_model(jcfg)
+    jp = japi.init(jax.random.key(0))
+    jopt = JaxOptConfig(lr=1e-3, warmup_steps=1)
+    jemb, jpos3 = jax_stub(jax.random.key(1), jcfg, Bq, Sq)
+    jbatch = {"tokens": jnp.asarray(toks.numpy()),
+              "labels": jnp.asarray(toks.numpy()),
+              "frontend_embeds": jemb, "positions3": jpos3}
+    with pytest.raises(TypeError):
+        jax_train_step(japi, jopt, microbatches=2)(
+            jp, jax_init_opt(jp, jopt), jbatch)
+
+
+def test_even_microbatches_take_every_row_in_order():
+    """On an even split the slices are the batch's rows in order, each
+    once: concatenated they give the batch back bit for bit."""
+    from repro_torch.training.train_step import _slice
+
+    _, _, _, _, batch = _setup()
+    for n in (1, 2, 4, 8):
+        for k, v in batch.items():
+            parts = [_slice(v, i, n) for i in range(n)]
+            assert all(len(p) == len(v) // n for p in parts)
+            assert torch.equal(torch.cat(parts), v), (k, n)
+
+
 def test_training_loop_learns():
     losses = train("mamba2-370m", steps=25, batch=4, seq=32, reduced=True,
                    lr=5e-3, log_every=100, device="cpu")

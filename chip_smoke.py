@@ -97,7 +97,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
    elementwise differences above 2e-5 between any two summation orders
    (normwise ~1e-5; an ordering or mapping fault would give ~1);
 9. planner B, the model DAG: ``export_decoder_graph`` of stablelm-3b at
-   full width, depth cut to 8 of its 32 layers (the later phases took
+   full width, depth cut to 4 of its 32 layers (the later phases took
    the time; fp32 weights from ``torch.Generator`` seed 0), batch 1, seq
    256, through the planner and every mode; every mode's logits and the
    ``ArenaExecutor``'s bit-identical to ``reference`` (their distance to
@@ -114,8 +114,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     256-token prompt, the scan at layer 0's own inputs against the
     float64 recurrence, and profiles of one decode step and one prefill
     call (device kernels per ``ssd_scan`` call);
-11. mamba2 serve, through phase 4-5's shared ``serve_phase``: the
-    8-request workload through ``ContinuousEngine`` (paged at megastep 8
+11. mamba2 serve, through phase 4-5's shared ``serve_phase`` on the
+    first 12 of the 48 layers (same widths; cut for the script's time):
+    the 8-request workload through ``ContinuousEngine`` (paged at megastep 8
     and 1, sharing asked for and gated off; dense at megastep 8 and 1)
     and ``ServingEngine``: streams bit-identical, no ``ssd_scan`` launch
     in decode, reset dispatches counted; a request served in a slot after
@@ -296,13 +297,15 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     KV head h % K), a text-only 128-token prompt (``positions3`` =
     arange on every stream) against scalar token-by-token decode (fp32
     2e-4, bf16 5e-2) and ``Stepper.prefill_chunk``, a profile of the
-    call; 30. phases 4-5b's serving checks: 28 ``paged_append`` and 28
-    ``paged_decode_attention`` launches a ``decode_fn`` call, streams
+    call; 30. phases 4-5b's serving checks on the first 7 of the 28
+    layers (same widths; cut for the script's time): 7 ``paged_append``
+    and 7 ``paged_decode_attention`` launches a ``decode_fn`` call, streams
     bit-identical at megastep 1, sharing off, on the dense cache (N=8 and
-    1; 28 ``decode_attention`` a call) and through the round engine; one
-    call with explicit ``positions3`` equal to ``cache_len`` bit-identical
-    to the call without, paged and dense; profiles of a decode step on
-    the dense cache and the paged pool; 31. training:
+    1; 7 ``decode_attention`` a call) and through the round engine; then
+    on all 28 layers, one call with explicit ``positions3`` equal to
+    ``cache_len`` bit-identical to the call without, paged and dense;
+    profiles of a decode step on the dense cache and the paged pool; 31.
+    training:
     ``make_train_step`` at B=4 of 1024 vision + 1024 text positions
     (labels for the text), step 1 against the plain versions with the
     planted faults caught, 56 ``flash_attention`` launches a step, 3
@@ -379,6 +382,41 @@ Phases (each raises on failure; the script exits 0 only if all pass):
     "jamba launches per call" line before the ``kernels`` line, whose
     ``*_jamba*`` rows are the kernels at these shapes.
 
+41.-44. the hardened serving path on phase 4's full-width stablelm-3b
+    (run right after phase 6, before the model is freed): 41. open loop:
+    16 requests from ``OpenLoopWorkload.poisson`` (seed 0, phase 4's
+    lengths: prompts 16-128, 32 new tokens, deadline 60 s) served closed
+    loop, then through ``run_open_loop`` at 0.65 of phase 4's closed-loop
+    request rate (TTFT p50/p95, attainment, goodput, peak queue; 32
+    ``paged_append`` and 32 ``paged_decode_attention`` launches a
+    ``decode_fn`` call), then all 16 at t=0 with ``max_queue`` 4 (some
+    ``rejected``/``queue_full``) untraced and under
+    ``Telemetry(trace=True)`` (same streams and dispatches; the Chrome
+    trace passes ``validate_chrome_trace``), then 4 at t=0 with a
+    deadline half the first request's TTFT (some ``cancelled``/
+    ``deadline``); every id resolves, every engine drains to quiescence,
+    and every completed stream equals the closed-loop one; 42. faults, on
+    8 requests (prompts 16-32, 16 new tokens): a budget shrink to 40 % of
+    the live KV bytes at iteration 3, restored at 12, at megastep 8 and
+    1, with a 1 GiB host tier (spills = restores > 0, 0 tokens
+    re-prefilled; each block capture and scatter timed between two
+    ``torch.cuda.synchronize()``) and without (re-prefill > 0), streams
+    bit-identical to the fault-free run; ``FaultPlane.random`` seeds 0-3
+    at megastep 8 on the paged pool with the tier and seed 4 on the dense
+    cache (the chaos invariants; 32 ``decode_attention`` launches a
+    dense call); NaN written in place into layer 0's ``wq``: 2 requests
+    fail ``poisoned_logits`` with no token, and with the bits put back
+    they equal the clean run; 43. prefix cache with the host tier: 8
+    requests sharing a 96-token prefix (8 new tokens) in waves of 3, 3
+    and 2; wave 2 revives cached blocks, a shrink between waves 2 and 3
+    evicts the cache to the host tier before anything live demotes, and
+    wave 3 scatters the blocks back; streams equal the cache-off run; 44.
+    the serve entry point with ``--arrival-rate 20 --deadline-s 5
+    --fault-seed 0 --max-queue 8 --host-pool 64M --trace`` (the trace
+    valid), ``serve("stablelm-3b", fault_seed=0)``, and the §3.3
+    default budget read from the card.  The launch counts print on a
+    "hardened launches per call" line before the ``kernels`` line.
+
 dbrx-132b, kimi-k2 and jamba-v0.1-52b are never resident together, nor
 beside another full-width model: each is freed before the next is
 built.
@@ -399,6 +437,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -418,12 +457,13 @@ PROMPT_MIN, PROMPT_MAX, MAX_NEW, PREFIX = 16, 128, 32, 32
 MAX_CONTEXT = PROMPT_MAX + MAX_NEW
 BPR = -(-MAX_CONTEXT // BS)        # blocks per row at that context
 SPIN_CYCLES = 2_000_000            # ~1 ms: covers one wrapper's host time
+CLOSED_LOOP_RPS = {}               # requests a second of serve_phase's run
 
 BM_SITES = {"qkv": (6, 512, 2560, 240), "out": (6, 512, 80, 2560)}
 BM_COUNTS = (512, 300, 0, 17, 511, 256)     # per-group rows at the sites
 PLANNER_GRAPH = dict(dim=2560, heads=32, seq=512)
 DAG_BATCH, DAG_SEQ = 1, 256
-DAG_LAYERS = 8                     # planner B's stablelm-3b depth (of 32)
+DAG_LAYERS = 4                     # planner B's stablelm-3b depth (of 32)
 RUNS_A, RUNS_B = 15, 3             # timed runs per planner mode
 MODES = {                          # PlanExecutor keyword arguments
     "reference": dict(mode="reference"),
@@ -479,6 +519,7 @@ SSD_CASES = (                      # label, b, S, H, G, L, N, strided
 APPEND_CHUNK = 16                  # paged_append's chunked, ragged case
 MAMBA_XCHECK = 256                 # one chunk: prefill_fn needs S % 256
 MAMBA_RUNS = 3                     # timed runs per planner mode
+MAMBA_SERVE_LAYERS = 12            # phase 11's depth (of 48), for time
 MAMBA_HETERO_LAYERS = 8            # hetero E's mamba2-370m depth (of 48)
 
 # the MoE phases (slice 5): published widths, depth cut to fit one card
@@ -519,6 +560,7 @@ WHISPER_NORMWISE = 1e-5            # hetero F: CPU against card fp32 sums
 QWEN = dict(H=12, K=2, D=128)      # GQA 12/2 heads of 128
 QWEN_TRAIN_B, QWEN_TRAIN_STEPS = 4, 3
 QWEN_DAG_SEQ = 256
+QWEN_SERVE_LAYERS = 7              # phase 30's depth (of 28), for time
 
 # the training phases (slice 8)
 GRAD_FLASH = (                     # label, B, H, K, S, T, D, causal
@@ -1305,6 +1347,7 @@ def serve_phase(api, params, identities=True):
     peak = torch.cuda.max_memory_allocated()
     n_tok = sum(len(t) for t in streams.values())
     stateful = eng.kv.state_bytes > 0
+    CLOSED_LOOP_RPS[cfg.name] = len(streams) / wall
     log(f"serve: {cfg.name}: 8/8 requests, {n_tok} tokens in {wall:.3f} s "
         f"({n_tok / wall:.1f} tok/s), {eng.dispatches} dispatches "
         f"({eng.dispatches / n_tok:.4f} per token), {eng.megasteps} "
@@ -2172,14 +2215,15 @@ def planner_kernel_path(bm, device):
     from repro_torch.core.executor import to_device
 
     g, make = tz.multihead_graph(**PLANNER_GRAPH)
-    budget = torch.cuda.mem_get_info(device)[0]
     t0 = time.perf_counter()
-    plan = compile_plan(g, ParallaxConfig(budget=budget))
+    plan = compile_plan(g, ParallaxConfig(device=device))
     plan_s = time.perf_counter() - t0
     stats = compile_schedule(plan, donate=True).stats
     log(f"planner A: multihead_graph{tuple(PLANNER_GRAPH.values())} fp32, "
-        f"{g.num_nodes()} nodes, budget {budget / 2**30:.2f} GiB free on "
-        f"the card: planned in {plan_s:.3f} s, {stats}")
+        f"{g.num_nodes()} nodes, §3.3 budget "
+        f"{plan.schedule.budget / 2**30:.2f} GiB (the card's free memory "
+        f"less the margin): planned in "
+        f"{plan_s:.3f} s, {stats}")
     if stats.batched_groups < 1 or stats.gemm_sites != 2:
         raise AssertionError("the planner path does not reach "
                              "branch_matmul at full width")
@@ -2251,9 +2295,8 @@ def dag_check(label, cfg, lm, seq, modes, runs, device, tol=None,
                                  f"{suffix} nodes")
         marked.append(f"{len(nodes)} unsupported {suffix} nodes")
     marked = f" ({', '.join(marked)})" if marked else ""
-    budget = torch.cuda.mem_get_info(device)[0]
     t0 = time.perf_counter()
-    plan = compile_plan(g, ParallaxConfig(budget=budget))
+    plan = compile_plan(g, ParallaxConfig(device=device))
     plan_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     stats = compile_schedule(plan, donate=True).stats
@@ -2262,7 +2305,8 @@ def dag_check(label, cfg, lm, seq, modes, runs, device, tol=None,
     log(f"{label}: {cfg.name} full width, {n_layers} layers (fp32), "
         f"batch {DAG_BATCH}, seq {seq}: {g.num_nodes()} nodes{marked}, "
         f"built+exported in {export_s:.1f} s; planned in {plan_s:.2f} s "
-        f"(budget {budget / 2**30:.2f} GiB) into {len(plan.branches)} "
+        f"(budget {plan.schedule.budget / 2**30:.2f} GiB) into "
+        f"{len(plan.branches)} "
         f"branches ({len(plan.branches) / n_layers:.1f} a model "
         f"layer), {len(plan.layers)} layers, {len(plan.schedule.layers)} "
         f"scheduled layers (width: count {dict(sorted(widths.items()))}, "
@@ -2497,11 +2541,10 @@ def hetero_zoo_phase(bm, device):
 
     perm = HardwareProfile("permissive", 0.0, 1.0, 1.0, 1.0)
     g, make = tz.multihead_graph(**PLANNER_GRAPH)
-    budget = torch.cuda.mem_get_info(device)[0]
     env = make(np.random.default_rng(0))
     for name, cfg, prof in (
-            ("permissive", ParallaxConfig(budget=budget), perm),
-            ("H100_CONFIG", H100_CONFIG.with_(budget=budget), None)):
+            ("permissive", ParallaxConfig(device=device), perm),
+            ("H100_CONFIG", H100_CONFIG.with_(device=device), None)):
         plan = compile_plan(g, cfg)
         fused = PlanExecutor(plan, device=device)
         card_env = to_device(env, device)
@@ -2528,7 +2571,7 @@ def hetero_zoo_phase(bm, device):
     for name in HETERO_CF_GRAPHS:
         g, make = tz.ALL_ZOO[name](dim=HETERO_CF_DIM)
         env = make(np.random.default_rng(0))
-        plan = compile_plan(g, H100_CONFIG.with_(budget=budget))
+        plan = compile_plan(g, H100_CONFIG.with_(device=device))
         ref = PlanExecutor(plan, "reference", device=device)(
             env).outputs[g.outputs[0]]
         ex, got, walls = hetero_runs(f"hetero B ({name})", plan, env,
@@ -2571,9 +2614,8 @@ def hetero_dag(label, cfg, lm, seq, device, configs, check, scan=None,
     env = make(np.random.default_rng(0))
     card_env, env = to_device(env, device), host_env(env)
     params_b = sum(env[t].nbytes for t in g.params)
-    budget = torch.cuda.mem_get_info(device)[0]
     for name in configs:
-        plan = compile_plan(g, getattr(core, name).with_(budget=budget))
+        plan = compile_plan(g, getattr(core, name).with_(device=device))
         ref = PlanExecutor(plan, "reference", device=device)(
             card_env).outputs[g.outputs[0]]
         fused = PlanExecutor(plan, device=device)
@@ -2890,6 +2932,16 @@ def mamba_phases(ss, device):
                    (matmul_ms + scan_ms, f"projection ({matmul_ms:.3f} ms) "
                     f"+ scan ({scan_ms:.3f} ms)"),
                    (("ssd_scan", ss.launches),))
+    del api, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the serving identities on the first MAMBA_SERVE_LAYERS layers: a
+    # host-bound step costs per layer, and every identity holds per row
+    cfg = dataclasses.replace(cfg, num_layers=MAMBA_SERVE_LAYERS)
+    api = build_model(cfg, device=device)
+    params = api.init(torch.Generator(device=device).manual_seed(0))
+    log(f"model: {cfg.name} full width, {cfg.num_layers} of 48 layers for "
+        f"the serving phase")
     serve_phase(api, params)
     del api, params
     gc.collect()
@@ -3932,15 +3984,28 @@ def qwen_prefill_phase(api, params, fa, device):
 
 
 def qwen_serve_phase(api, params, pa, da, device):
-    """Phase 30: :func:`serve_phase` on qwen2-vl-2b (28 ``paged_append``
-    and 28 ``paged_decode_attention`` launches a ``decode_fn`` call,
+    """Phase 30: :func:`serve_phase` on the first ``QWEN_SERVE_LAYERS``
+    layers of qwen2-vl-2b (one ``paged_append`` and one
+    ``paged_decode_attention`` launch a layer a ``decode_fn`` call,
     streams bit-identical at megastep 1, with sharing off, on the dense
-    cache with 28 ``decode_attention`` a call and through the round
-    engine); one ``decode_fn`` call with explicit equal ``positions3``
-    bit-identical to the call without them, paged and dense; profiles of
-    a decode step.  Returns the paged launches of one call."""
+    cache with one ``decode_attention`` a layer a call and through the
+    round engine); then on the full model one ``decode_fn`` call with
+    explicit equal ``positions3`` bit-identical to the call without
+    them, paged and dense, and profiles of a decode step.  Returns the
+    serving model's paged launches of one call."""
+    from repro_torch.models import build_model
+
     cfg = api.cfg
-    launched, n_calls = serve_phase(api, params)
+    # a host-bound serving run costs per layer; every identity holds
+    # per row, so the serving checks run on the first layers
+    scfg = dataclasses.replace(cfg, num_layers=QWEN_SERVE_LAYERS)
+    sapi = build_model(scfg, device=device)
+    sparams = sapi.init(torch.Generator(device=device).manual_seed(0))
+    log(f"model: {cfg.name} full width, {QWEN_SERVE_LAYERS} of "
+        f"{cfg.num_layers} layers for the serving checks")
+    launched, n_calls = serve_phase(sapi, sparams)
+    del sapi, sparams
+    free()
     log(f"qwen2-vl dense: {launched.pop('decode_attention')} "
         f"decode_attention launches in the three dense runs")
 
@@ -5109,6 +5174,481 @@ def serve_example_phase(da):
                              "kernels")
 
 
+# --------------------------------------------------------------------------
+# phases 41-44: the hardened serving path on phase 4's stablelm-3b
+# --------------------------------------------------------------------------
+
+OPEN_LOOP_N = 16                   # phase 41's requests
+OPEN_LOOP_LOAD = 0.65              # of phase 4's closed-loop request rate
+OPEN_LOOP_DEADLINE_S = 60.0
+OPEN_LOOP_MAX_QUEUE = 4
+#: phase 4's lengths as a one-class mix (inclusive bounds)
+OPEN_LOOP_MIX = ((1, (PROMPT_MIN, PROMPT_MAX), (MAX_NEW, MAX_NEW)),)
+FAULT_N, FAULT_PROMPT_MAX, FAULT_NEW = 8, 32, 16     # phase 42's requests
+FAULT_SHRINK_AT, FAULT_RESTORE_AT, FAULT_SHRINK = 3, 12, 0.4
+FAULT_SEEDS, DENSE_FAULT_SEED = (0, 1, 2, 3), 4
+HOST_TIER = 1 << 30
+CACHE_PREFIX, CACHE_WAVES, CACHE_NEW = 96, (3, 3, 2), 8   # phase 43
+
+
+def hard_engine(api, params, telemetry=None, faults=None, **kw):
+    """ContinuousEngine at phase 4's shapes with every knob explicit."""
+    from repro_torch.runtime.config import EngineConfig
+    from repro_torch.runtime.engine import ContinuousEngine
+
+    conf = dict(hbm_budget=4 << 30, max_batch=B, block_size=BS,
+                max_context=MAX_CONTEXT, megastep=8, host_pool=0,
+                fault_seed=None, prefix_cache=False, retry_backoff_s=0.0)
+    conf.update(kw)
+    return ContinuousEngine(api, params, config=EngineConfig(**conf),
+                            telemetry=telemetry, faults=faults,
+                            device=api.device)
+
+
+def resolved_against(label, done, ids, ref, tier_eng=None):
+    """The chaos invariants: every id resolves with a known status,
+    completed streams equal ``ref``, cancelled and failed ones are
+    prefixes of it, rejected ones are empty; with ``tier_eng``, no token
+    was re-prefilled and every spill was restored.  Returns the count of
+    each status."""
+    from repro_torch.runtime.engine import COMPLETION_STATUSES
+
+    if sorted(done) != sorted(ids):
+        raise AssertionError(f"{label}: ids {sorted(done)} resolved of "
+                             f"{sorted(ids)}")
+    by = collections.Counter()
+    for rid in ids:
+        c = done[rid]
+        by[f"{c.status}" + (f"/{c.reason}" if c.reason else "")] += 1
+        want = ref[rid]
+        if c.status not in COMPLETION_STATUSES or c.reason == "max_iters" \
+                or (c.status == "completed" and c.tokens != want) \
+                or (c.status in ("cancelled", "failed")
+                    and c.tokens != want[:len(c.tokens)]) \
+                or (c.status == "rejected" and c.tokens):
+            raise AssertionError(f"{label}: request {rid} {c.status} "
+                                 f"({c.reason}) with stream {c.tokens}")
+    if tier_eng is not None and (tier_eng.reprefill_tokens
+                                 or tier_eng.spills != tier_eng.restores):
+        raise AssertionError(
+            f"{label}: {tier_eng.reprefill_tokens} tokens re-prefilled, "
+            f"{tier_eng.spills} spills, {tier_eng.restores} restores")
+    return dict(by)
+
+
+def zero_counts(calls):
+    """Launch counts and the ``decode_fn`` call count to 0."""
+    for m in kernel_modules():
+        m.reset_launches()
+    calls[0] = 0
+
+
+def check_decode_launches(label, cfg, calls, paged, per_call):
+    """The launches since :func:`zero_counts`: per ``decode_fn`` call,
+    one paged kernel pair (or one ``decode_attention``) a layer."""
+    launched, n = kernel_counts(kernel_modules()), calls[0]
+    want = decode_launches(cfg, n, paged)
+    if launched != want or n == 0:
+        raise AssertionError(f"{label}: launches {launched} for {n} "
+                             f"decode_fn calls, expected {want}")
+    per_call[label] = {k: v // n for k, v in launched.items() if v}
+
+
+@contextlib.contextmanager
+def timed_transfers():
+    """``ContinuousEngine._capture_blocks`` / ``_scatter_blocks`` with a
+    ``torch.cuda.synchronize()`` on each side, for engines built inside
+    the context; yields ``{"capture"|"scatter": [calls, blocks, bytes,
+    ms]}`` (bytes: whole KV blocks across PCIe)."""
+    from repro_torch.runtime.engine import ContinuousEngine
+
+    stats = {"capture": [0, 0, 0, 0.0], "scatter": [0, 0, 0, 0.0]}
+    originals = {k: getattr(ContinuousEngine, f"_{k}_blocks")
+                 for k in stats}
+
+    def timed(kind, fn):
+        def call(self, arg):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, arg)
+            torch.cuda.synchronize()
+            s = stats[kind]
+            s[0] += 1
+            s[1] += len(arg)
+            s[2] += len(arg) * self.kv.block_bytes
+            s[3] += (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    for kind, fn in originals.items():
+        setattr(ContinuousEngine, f"_{kind}_blocks", timed(kind, fn))
+    try:
+        yield stats
+    finally:
+        for kind, fn in originals.items():
+            setattr(ContinuousEngine, f"_{kind}_blocks", fn)
+
+
+def transfer_summary(stats):
+    return ", ".join(
+        f"{k} {n} calls / {blocks} blocks / {nbytes / 2**20:.1f} MiB in "
+        f"{ms:.3f} ms ({nbytes / 2**30 / max(ms, 1e-9) * 1e3:.2f} GiB/s)"
+        for k, (n, blocks, nbytes, ms) in stats.items())
+
+
+def open_loop_phase(api, params, calls, per_call):
+    """Phase 41: open-loop arrivals, backpressure and deadlines."""
+    from repro_torch.runtime.engine import Request
+    from repro_torch.runtime.telemetry import (Telemetry,
+                                               validate_chrome_trace)
+    from repro_torch.runtime.workload import (Arrival, OpenLoopWorkload,
+                                              percentile, run_open_loop)
+
+    cfg = api.cfg
+    rate = OPEN_LOOP_LOAD * CLOSED_LOOP_RPS[cfg.name]
+    wl = OpenLoopWorkload.poisson(
+        rate, OPEN_LOOP_N, cfg.vocab_size, seed=0,
+        deadline_s=OPEN_LOOP_DEADLINE_S, length_mix=OPEN_LOOP_MIX)
+    ids = [a.request.id for a in wl]
+
+    eng = hard_engine(api, params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in wl:
+        eng.submit(a.request)
+    done = eng.run()
+    torch.cuda.synchronize()
+    closed_s = time.perf_counter() - t0
+    eng.assert_quiescent()
+    if sorted(done) != ids or not all(c.ok for c in done.values()):
+        raise AssertionError("open loop: the closed-loop run failed")
+    ref = {k: c.tokens for k, c in done.items()}
+    log(f"open loop: {OPEN_LOOP_N} requests (prompts "
+        f"{min(len(a.request.prompt) for a in wl)}-"
+        f"{max(len(a.request.prompt) for a in wl)}, {MAX_NEW} new tokens) "
+        f"closed loop in {closed_s:.3f} s ({OPEN_LOOP_N / closed_s:.3f} "
+        f"req/s; phase 4's 8 requests: "
+        f"{CLOSED_LOOP_RPS[cfg.name]:.3f} req/s), {eng.dispatches} "
+        f"dispatches")
+
+    zero_counts(calls)
+    eng = hard_engine(api, params)
+    res = run_open_loop(eng, wl)
+    torch.cuda.synchronize()
+    eng.assert_quiescent()
+    by = resolved_against("open loop", res.completions, ids, ref)
+    if by != {"completed": OPEN_LOOP_N}:
+        raise AssertionError(f"open loop: {by}")
+    check_decode_launches("open loop", cfg, calls, True, per_call)
+    ok = list(res.completions.values())
+    ttfts = [c.ttft_submit_s for c in ok]
+    good = sum(len(c.tokens) for c in ok)
+    peak_q = max(q for _, q, _ in res.queue_samples)
+    first_ttft = res.completions[ids[0]].ttft_submit_s
+    log(f"open loop: offered {wl.offered_rate_rps:.3f} req/s "
+        f"({OPEN_LOOP_LOAD} x {CLOSED_LOOP_RPS[cfg.name]:.3f}) over "
+        f"{wl.duration_s:.2f} s, served in {res.wall_s:.3f} s: attainment "
+        f"{len(ok)}/{OPEN_LOOP_N} (deadline {OPEN_LOOP_DEADLINE_S} s), "
+        f"goodput {good / res.wall_s:.2f} tok/s, TTFT p50 "
+        f"{percentile(ttfts, 50) * 1e3:.1f} ms / p95 "
+        f"{percentile(ttfts, 95) * 1e3:.1f} ms (submit to first token), "
+        f"peak queue {peak_q}, {eng.dispatches} dispatches, {calls[0]} "
+        f"decode_fn calls; streams bit-identical to the closed loop")
+
+    burst = OpenLoopWorkload([Arrival(0.0, a.request) for a in wl])
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = os.path.join(tmp, "burst.json")
+        for tele in (None, Telemetry(trace=True)):
+            zero_counts(calls)
+            eng = hard_engine(api, params, telemetry=tele,
+                              max_queue=OPEN_LOOP_MAX_QUEUE)
+            res_b = run_open_loop(eng, burst)
+            torch.cuda.synchronize()
+            eng.assert_quiescent()
+            label = "burst" + (" traced" if tele else "")
+            by = resolved_against(label, res_b.completions, ids, ref)
+            check_decode_launches(label, cfg, calls, True, per_call)
+            runs.append((res_b, eng, by))
+            if tele is not None:
+                tele.save_chrome_trace(trace_path)
+                summary = validate_chrome_trace(
+                    trace_path, require_names=("iteration", "kv_pool",
+                                               "megastep", "req "))
+    (plain, e_plain, by), (traced, e_traced, _) = runs
+    if by.get("rejected/queue_full", 0) == 0 \
+            or by.get("completed", 0) != OPEN_LOOP_MAX_QUEUE:
+        raise AssertionError(f"burst: {by}")
+    same = ({k: c.tokens for k, c in plain.completions.items()}
+            == {k: c.tokens for k, c in traced.completions.items()}
+            and e_plain.dispatches == e_traced.dispatches
+            and e_plain.iterations == e_traced.iterations)
+    log(f"backpressure: {OPEN_LOOP_N} arrivals at t=0, max_queue "
+        f"{OPEN_LOOP_MAX_QUEUE}: {by}; untraced {plain.wall_s:.3f} s, "
+        f"traced {traced.wall_s:.3f} s: streams, {e_plain.dispatches} "
+        f"dispatches and {e_plain.iterations} iterations "
+        f"{'equal' if same else 'DIFFER'}; Chrome trace valid: "
+        f"{summary['events']} events, phases {summary['phases']}")
+    if not same:
+        raise AssertionError("tracing changed the burst run")
+
+    deadline = first_ttft / 2
+    tight = OpenLoopWorkload([Arrival(0.0, Request(
+        a.request.id, a.request.prompt, a.request.max_new_tokens,
+        deadline_s=deadline)) for a in wl.arrivals[:4]])
+    eng = hard_engine(api, params)
+    res_d = run_open_loop(eng, tight)
+    torch.cuda.synchronize()
+    eng.assert_quiescent()
+    by = resolved_against("deadline", res_d.completions, ids[:4], ref)
+    log(f"deadline: 4 arrivals at t=0, deadline {deadline * 1e3:.1f} ms "
+        f"(half the open loop's first TTFT): {by}, cancellations "
+        f"{eng.cancellations}")
+    if by.get("cancelled/deadline", 0) == 0:
+        raise AssertionError("deadline: nothing expired")
+
+
+def fault_requests(vocab):
+    """Phase 42's requests: prompts 16-32 tokens, 16 new tokens."""
+    from repro_torch.runtime.engine import Request
+
+    rng = np.random.default_rng(1)
+    return [Request(i, rng.integers(0, vocab, int(rng.integers(
+        PROMPT_MIN, FAULT_PROMPT_MAX + 1))).astype(np.int32),
+        max_new_tokens=FAULT_NEW) for i in range(FAULT_N)]
+
+
+def fault_play(api, params, megastep, faults=None, host_pool=0, paged=True,
+               probe_at=None, reqs=None, hbm_budget=4 << 30):
+    """One run of the fault requests; with ``probe_at``, the bytes the
+    pool holds when a fault at that iteration fires (after the step()
+    before it).  Returns (completions, engine, bytes)."""
+    from repro_torch.runtime.engine import Request
+
+    eng = hard_engine(api, params, faults=faults, megastep=megastep,
+                      host_pool=host_pool, paged=paged, hbm_budget=hbm_budget)
+    for r in reqs or fault_requests(api.cfg.vocab_size):
+        eng.submit(Request(r.id, r.prompt, r.max_new_tokens))
+    live = None
+    while probe_at is not None and eng.iterations < probe_at - 1:
+        eng.step()
+        live = eng.kv.in_use
+    done = eng.run(max_iters=2000)
+    torch.cuda.synchronize()
+    eng.assert_quiescent()
+    return done, eng, live
+
+
+def fault_phase(api, params, calls, per_call):
+    """Phase 42: budget shrinks with and without the host tier, random
+    fault schedules on the paged pool and the dense cache, NaN weights."""
+    from repro_torch.runtime.faults import FaultEvent, FaultPlane
+
+    ids = list(range(FAULT_N))
+    live, ref = {}, None
+    for n in (1, 8):
+        done, eng, live[n] = fault_play(api, params, n,
+                                        probe_at=FAULT_SHRINK_AT)
+        streams = {k: c.tokens for k, c in done.items()}
+        if not all(c.ok for c in done.values()) \
+                or (ref is not None and streams != ref):
+            raise AssertionError(f"faults: the fault-free run at megastep "
+                                 f"{n} failed or differs")
+        ref, full, peak = streams, eng.kv.budget, eng.kv.peak_bytes
+    log(f"faults: {FAULT_N} requests fault-free at megastep 1 and 8 "
+        f"(identical); pool when iteration {FAULT_SHRINK_AT} starts "
+        f"{live[1] / 2**20:.1f} / {live[8] / 2**20:.1f} MiB, peak at "
+        f"megastep 8 {peak / 2**20:.1f} MiB, budget after the margin "
+        f"{full / 2**30:.2f} GiB")
+
+    for n in (8, 1):
+        plane = FaultPlane([
+            FaultEvent(FAULT_SHRINK_AT, "budget",
+                       budget_bytes=int(FAULT_SHRINK * live[n])),
+            FaultEvent(FAULT_RESTORE_AT, "budget", budget_bytes=full)])
+        for tier in (HOST_TIER, 0):
+            with timed_transfers() as moved:
+                done, eng, _ = fault_play(api, params, n, plane, tier)
+            label = f"shrink megastep {n} " + ("tier" if tier else "no tier")
+            by = resolved_against(label, done, ids, ref,
+                                  eng if tier else None)
+            log(f"faults: {label}: shrink to {FAULT_SHRINK} x "
+                f"{live[n] / 2**20:.1f} MiB at iteration {FAULT_SHRINK_AT}, "
+                f"restored at {FAULT_RESTORE_AT}: {by}, preemptions "
+                f"{eng.preemptions}, spills {eng.spills}, restores "
+                f"{eng.restores}, re-prefilled {eng.reprefill_tokens}, "
+                f"prefill tokens saved {eng.prefill_tokens_saved}, stalls "
+                f"{eng.stalls}, host peak "
+                f"{eng.kv.host_peak_bytes / 2**20:.1f} MiB; "
+                f"{transfer_summary(moved)}; streams bit-identical to the "
+                f"fault-free run")
+            if by != {"completed": FAULT_N} or (
+                    tier and not eng.spills == eng.restores > 0) or (
+                    not tier and not eng.reprefill_tokens > 0):
+                raise AssertionError(f"faults: {label}")
+
+    # the random schedules run on a pool the size of the fault-free
+    # peak, so their shrinks (5-60 % of it) bite
+    runs = [(f"seed {s} paged megastep 8 tier", s, True)
+            for s in FAULT_SEEDS]
+    runs.append((f"seed {DENSE_FAULT_SEED} dense megastep 8",
+                 DENSE_FAULT_SEED, False))
+    for label, seed, paged in runs:
+        plane = FaultPlane.random(seed, budget_bytes=peak, request_ids=ids,
+                                  max_batch=B)
+        zero_counts(calls)
+        with timed_transfers() as moved:
+            done, eng, _ = fault_play(api, params, 8, plane,
+                                      HOST_TIER if paged else 0, paged,
+                                      hbm_budget=int(peak / 0.6) + 1)
+        check_decode_launches(f"faults {'paged' if paged else 'dense'}",
+                              api.cfg, calls, paged, per_call)
+        by = resolved_against(label, done, ids, ref, eng if paged else None)
+        log(f"faults: {label}: {len(plane.events)} events "
+            f"{collections.Counter(e.kind for e in plane.events)}: {by}; "
+            f"watchdog trips {eng.watchdog_trips}, retries "
+            f"{eng.retry_dispatches}, megastep fallbacks "
+            f"{eng.megastep_fallbacks}, rows failed {eng.rows_failed}, "
+            f"cancellations {eng.cancellations}, preemptions "
+            f"{eng.preemptions}, spills {eng.spills}, restores "
+            f"{eng.restores}, re-prefilled {eng.reprefill_tokens}, stalls "
+            f"{eng.stalls}; {transfer_summary(moved)}")
+
+    reqs = fault_requests(api.cfg.vocab_size)[:2]
+    w = params.layers[0].attn.wq
+    saved = w.detach().clone()
+    with torch.no_grad():
+        w.fill_(float("nan"))
+    done, eng, _ = fault_play(api, params, 8, reqs=reqs)
+    with torch.no_grad():
+        w.copy_(saved)
+    bad = {k: (c.status, c.reason, c.tokens) for k, c in done.items()}
+    if any(v != ("failed", "poisoned_logits", []) for v in bad.values()) \
+            or eng.watchdog_trips == 0:
+        raise AssertionError(f"NaN weights: {bad}")
+    back = torch.equal(w.view(torch.int16), saved.view(torch.int16))
+    done, _, _ = fault_play(api, params, 8, reqs=reqs)
+    clean = all(c.ok and c.tokens == ref[k] for k, c in done.items())
+    log(f"faults: NaN in layer 0's wq ({tuple(w.shape)}, in place): 2 "
+        f"requests {collections.Counter(v[:2] + (len(v[2]),) for v in bad.values())}"
+        f" (status, reason, tokens), watchdog trips "
+        f"{eng.watchdog_trips}; bits put back "
+        f"{'exactly' if back else 'NOT exactly'}, then "
+        f"{'equal to' if clean else 'DIFFERENT from'} the clean run")
+    if not (back and clean):
+        raise AssertionError("NaN weights: the model did not come back")
+
+
+def prefix_cache_phase(api, params):
+    """Phase 43: revival, eviction to the host tier before demotion, and
+    the host second chance, against the same waves with the cache off."""
+    from repro_torch.runtime.engine import Request
+    from repro_torch.runtime.faults import FaultEvent, FaultPlane
+
+    vocab = api.cfg.vocab_size
+    rng = np.random.default_rng(2)
+    prefix = rng.integers(0, vocab, CACHE_PREFIX)
+    reqs = [Request(i, np.concatenate([prefix, rng.integers(
+        0, vocab, int(rng.integers(4, 17)))]).astype(np.int32),
+        max_new_tokens=CACHE_NEW) for i in range(sum(CACHE_WAVES))]
+    bounds = np.cumsum((0,) + CACHE_WAVES)
+    waves = [reqs[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+    # the cache-off reference serves all 8 in one wave: a row's stream
+    # does not depend on its batch
+    off = hard_engine(api, params)
+    for r in reqs:
+        off.submit(r)
+    want = {k: c.tokens for k, c in off.run().items()}
+    off.assert_quiescent()
+    with timed_transfers() as moved:
+        eng = hard_engine(api, params, prefix_cache=True,
+                          host_pool=HOST_TIER)
+        done, marks = {}, []
+        for w, wave in enumerate(waves):
+            if w == 2:
+                # between waves 2 and 3: the pool shrinks below one block
+                # for an iteration, then comes back
+                it, full = eng.iterations, eng.kv.budget
+                eng.faults = FaultPlane([
+                    FaultEvent(it + 1, "budget", budget_bytes=1),
+                    FaultEvent(it + 2, "budget", budget_bytes=full)])
+            for r in wave:
+                eng.submit(r)
+            done.update(eng.run())
+            marks.append((eng.kv.prefix_cache_hits,
+                          eng.kv.prefix_cache_evictions,
+                          eng.kv.prefix_cache_host_hits))
+        torch.cuda.synchronize()
+        eng.assert_quiescent()
+    if not all(c.ok for c in done.values()):
+        raise AssertionError("prefix cache: a request failed")
+    (h1, _, _), (h2, e2, _), (h3, e3, host) = marks
+    same = {k: c.tokens for k, c in done.items()} == want
+    log(f"prefix cache: {len(reqs)} requests sharing a {CACHE_PREFIX}-token "
+        f"prefix in waves {CACHE_WAVES}: cache hits after each wave "
+        f"{h1}/{h2}/{h3} blocks, evictions {e3 - e2} at the shrink, host "
+        f"revivals {host}, prefill tokens saved by the cache "
+        f"{eng.prefill_tokens_saved_cache}, preemptions {eng.preemptions}; "
+        f"{transfer_summary(moved)}; streams "
+        f"{'bit-identical to' if same else 'DIFFERENT from'} the cache off "
+        f"(one wave)")
+    if not (same and h2 > h1 and e3 > e2 and host > 0
+            and eng.preemptions == 0):
+        raise AssertionError("prefix cache: revival, eviction or the host "
+                             "second chance did not happen")
+
+
+def cli_hardened_phase(device):
+    """Phase 44: the serve entry point with its open-loop, fault and
+    trace flags (in this process, as phase 7 runs it),
+    ``serve(fault_seed=0)``, and the card's §3.3 default budget."""
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.serve import serve
+    from repro_torch.runtime.config import EngineConfig
+    from repro_torch.runtime.engine import COMPLETION_STATUSES
+    from repro_torch.runtime.telemetry import validate_chrome_trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "serve.json")
+        argv = ["--arch", "stablelm-3b", "--arrival-rate", "20",
+                "--deadline-s", "5", "--fault-seed", "0", "--max-queue", "8",
+                "--host-pool", "64M", "--trace", path]
+        log(f"cli: python -m repro_torch.launch.serve {' '.join(argv[:-1])} "
+            f"<tmp>/serve.json")
+        serve_main(argv)
+        summary = validate_chrome_trace(path)
+    log(f"cli: the trace is valid: {summary['events']} events, phases "
+        f"{summary['phases']}")
+    done = serve("stablelm-3b", fault_seed=0)
+    by = collections.Counter(c.status for c in done.values())
+    if not set(by) <= set(COMPLETION_STATUSES):
+        raise AssertionError(f"serve(fault_seed=0): {by}")
+    card = EngineConfig().on_device(device).hbm_budget
+    log(f"cli: serve('stablelm-3b', fault_seed=0): {dict(by)}; the §3.3 "
+        f"default budget on the card {card / 2**30:.2f} GiB "
+        f"(torch.cuda.mem_get_info), on the host "
+        f"{EngineConfig().hbm_budget / 2**30:.2f} GiB (MemAvailable)")
+
+
+def hardened_phases(api, params, device):
+    """Phases 41-44 on phase 4's model; returns the launches per
+    ``decode_fn`` call of each counted run."""
+    calls, per_call = count_calls(api), {}
+    t0 = time.perf_counter()
+    open_loop_phase(api, params, calls, per_call)
+    t1 = time.perf_counter()
+    fault_phase(api, params, calls, per_call)
+    t2 = time.perf_counter()
+    prefix_cache_phase(api, params)
+    t3 = time.perf_counter()
+    cli_hardened_phase(device)
+    t4 = time.perf_counter()
+    log(f"hardened phases: 41 open loop {t1 - t0:.1f} s, 42 faults "
+        f"{t2 - t1:.1f} s, 43 prefix cache {t3 - t2:.1f} s, 44 CLI "
+        f"{t4 - t3:.1f} s")
+    return per_call
+
+
 def count_calls(api):
     """Wrap ``api.decode_fn`` with a call counter; returns the counter."""
     calls = [0]
@@ -5179,6 +5719,7 @@ def main() -> int:
     step_profile(api, params, device, (
         ("paged_decode_attention", pa.launches),
         ("decode_attention", da.launches)))
+    hardened_launches = hardened_phases(api, params, device)
     del api, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5288,6 +5829,7 @@ def main() -> int:
     print("whisper launches per call: " + json.dumps(whisper_launches))
     print("qwen2-vl launches per call: " + json.dumps(qwen_launches))
     print("distributed launches per call: " + json.dumps(dist_launches))
+    print("hardened launches per call: " + json.dumps(hardened_launches))
     print("jamba launches per call: " + json.dumps(
         {k: v for k, v in jamba_launches.items() if k != "serve run"}))
     print(json.dumps({"kernels": rows}))

@@ -33,7 +33,8 @@ class ParallaxConfig:
     beta: float = DEFAULT_BETA
     margin: float = DEFAULT_MARGIN
     max_parallel: int = DEFAULT_MAX_PARALLEL
-    budget: "int | None" = None          # None -> query OS free memory
+    budget: "int | None" = None          # None -> free memory on device
+    device: "str | None" = None          # where the plan runs; None: host
     enable_partitioning: bool = True     # ablation switches
     enable_balancing: bool = True
     naive_arenas: bool = False           # Table 5 "Naive" baseline
@@ -92,7 +93,8 @@ def compile_plan(graph: Graph,
 
     peak_mems = {b.id: b.peak_memory for b in branch_list}
     budget = (config.budget if config.budget is not None
-              else memory_budget(margin=config.margin))
+              else memory_budget(margin=config.margin,
+                                 device=config.device))
     schedule = schedule_layers(layer_groups, peak_mems, budget=budget,
                                margin=config.margin,
                                max_parallel=config.max_parallel)

@@ -32,13 +32,15 @@ def _parse_bytes(text: str) -> int:
     return int(s)
 
 
-def query_available_memory() -> int:
-    """Available memory in bytes for the §3.3 budget.
+def query_available_memory(device=None) -> int:
+    """Available memory in bytes for the §3.3 budget on ``device``.
 
     Resolution order: the ``PARALLAX_MEM_BUDGET`` env var (explicit
-    operator override — supports K/M/G/T suffixes, e.g. ``4G``), then
-    /proc/meminfo MemAvailable, then an 8 GiB fallback for platforms
-    exposing neither.
+    operator override — supports K/M/G/T suffixes, e.g. ``4G``), then,
+    for a CUDA ``device``, the card's free memory
+    (``torch.cuda.mem_get_info``), else /proc/meminfo MemAvailable, then
+    an 8 GiB fallback for platforms exposing neither.  ``device=None``
+    (and the CPU) reads the host, as the JAX package does.
     """
     env = os.environ.get(MEM_BUDGET_ENV)
     if env:
@@ -52,6 +54,12 @@ def query_available_memory() -> int:
                 f"{MEM_BUDGET_ENV}={env!r} must be positive — a zero or "
                 f"negative budget silently serializes every schedule")
         return n
+    if device is not None:
+        import torch
+
+        device = torch.device(device)
+        if device.type == "cuda":
+            return int(torch.cuda.mem_get_info(device)[0])
     try:
         with open("/proc/meminfo") as f:
             for line in f:
@@ -63,12 +71,13 @@ def query_available_memory() -> int:
 
 
 def memory_budget(available: "int | None" = None,
-                  margin: float = DEFAULT_MARGIN) -> int:
-    """M_budget = free memory with a 30–50 % safety margin withheld."""
+                  margin: float = DEFAULT_MARGIN, device=None) -> int:
+    """M_budget = free memory (on ``device`` when ``available`` is not
+    given) with a 30–50 % safety margin withheld."""
     if not 0.0 <= margin < 1.0:
         raise ValueError(f"margin must be in [0, 1), got {margin}")
     if available is None:
-        available = query_available_memory()
+        available = query_available_memory(device)
     return int(available * (1.0 - margin))
 
 

@@ -72,7 +72,11 @@ def serve(arch: str, n_requests: int = 8, max_new: int = 16,
     api = build_model(cfg, device=device)
     params = api.init(torch.Generator(device=api.device).manual_seed(seed))
     tele = Telemetry(trace=trace_path is not None)
-    if config is None:
+    if config is not None:
+        # read a probed budget on the model's device now: the open
+        # loop's replace() below passes it on as an explicit value
+        config = config.on_device(api.device)
+    else:
         # a kwarg left at None is unset and falls through EngineConfig's
         # env-then-default resolution
         config = EngineConfig(

@@ -27,10 +27,12 @@ from __future__ import annotations
 
 import argparse
 import os
-from dataclasses import dataclass, field, fields
+from dataclasses import dataclass, field, fields, replace
+
+import torch
 
 from repro_torch.core.scheduler import (MEM_BUDGET_ENV, _parse_bytes,
-                                  query_available_memory)
+                                        query_available_memory)
 from .faults import FAULT_SEED_ENV
 
 MEGASTEP_ENV = "PARALLAX_MEGASTEP"
@@ -97,7 +99,8 @@ class EngineConfig:
     hbm_budget: int = _knob(
         None, env=MEM_BUDGET_ENV, parse=_parse_bytes, unit="bytes",
         help="device KV budget in bytes before the safety margin "
-             "(K/M/G/T suffixes ok); default probes /proc/meminfo")
+             "(K/M/G/T suffixes ok); default probes the card's free "
+             "memory (the host's /proc/meminfo on the CPU)")
     margin: float = _knob(
         0.4, parse=float,
         help="fraction of hbm_budget held back from the KV pool")
@@ -176,10 +179,22 @@ class EngineConfig:
                 # CLI/str passthrough: "512M" budgets, "none" seeds, ...
                 value = meta["parse"](value)
             object.__setattr__(self, f.name, value)
-        # hbm_budget's default is machine-probed, not a literal
-        if self.hbm_budget is None:
+        # hbm_budget's default is machine-probed, not a literal: the
+        # host's here, the device's once an engine calls on_device
+        probed = self.hbm_budget is None
+        if probed:
             object.__setattr__(self, "hbm_budget", query_available_memory())
+        object.__setattr__(self, "_budget_probed", probed)
         self._validate()
+
+    def on_device(self, device) -> "EngineConfig":
+        """The config an engine on ``device`` runs with.  A budget that
+        was probed (neither passed nor set by ``PARALLAX_MEM_BUDGET``)
+        is read again from a CUDA ``device`` — the card's free memory,
+        not the host's; any other config is returned as it is."""
+        if not self._budget_probed or torch.device(device).type != "cuda":
+            return self
+        return replace(self, hbm_budget=query_available_memory(device))
 
     def _validate(self):
         def bad(msg):

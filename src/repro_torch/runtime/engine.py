@@ -174,8 +174,8 @@ class ServingEngine:
                  telemetry: "Telemetry | None" = None, device=None):
         _engine_device(api, device)
         # the round engine's default is dynamic per-round bucketing
-        config = config if config is not None \
-            else EngineConfig(max_context=None)
+        config = (config if config is not None
+                  else EngineConfig(max_context=None)).on_device(api.device)
         self.config = config
         self.api = api
         self.cfg = api.cfg
@@ -526,7 +526,8 @@ class ContinuousEngine:
                  stepper: "Stepper | None" = None, faults=None,
                  telemetry: "Telemetry | None" = None, device=None):
         _engine_device(api, device)
-        config = config if config is not None else EngineConfig()
+        config = (config if config is not None
+                  else EngineConfig()).on_device(api.device)
         if config.max_context is None:
             raise ValueError("ContinuousEngine needs an integer "
                              "max_context (the paged pool shape depends "

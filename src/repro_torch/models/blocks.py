@@ -11,12 +11,21 @@ MoE channel runs ``moe_dense``, ``moe_ragged`` or, given a mesh,
 (``models.model._moe_impl_for``, as in JAX).  Under an active mesh the
 residual stream is constrained at the block boundaries
 (``sharding.shard_batch_seq`` / ``shard_decode``), as in JAX.
+
+Each half of a block closes a span of the installed telemetry plane's
+chain (``SpanRecorder.sublayer``; the model's loop marks each block):
+the mixer half as ``attn`` or ``mamba``, a dense channel as ``mlp``, an
+MoE channel as ``moe.route`` / ``moe.dispatch`` / ``moe.experts``
+(closed in :mod:`.moe`) and ``moe.combine`` (closed here, after the
+residual).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from repro_torch.runtime.telemetry import recorder
 
 from .attention import (Attention, decode_step_attention, init_kv_cache,
                         init_paged_kv_cache, self_attention)
@@ -92,7 +101,9 @@ def _channel_mix(params: Block, cfg, x, moe_impl, mesh=None):
         return x, 0.0
     h = shard_batch(norm(params.norm2, x))
     if channel == "dense":
-        return x + shard_batch_seq(mlp(params.mlp, h)), 0.0
+        x = x + shard_batch_seq(mlp(params.mlp, h))
+        recorder().sublayer("mlp")
+        return x, 0.0
     B, S, d = h.shape
     flat = h.reshape(B * S, d)
     if moe_impl == "dense":
@@ -101,7 +112,9 @@ def _channel_mix(params: Block, cfg, x, moe_impl, mesh=None):
         y, aux = moe_ep(params.moe, cfg, flat, mesh)
     else:
         y, aux = moe_ragged(params.moe, cfg, flat)
-    return x + shard_batch_seq(y.reshape(B, S, d)), aux
+    x = x + shard_batch_seq(y.reshape(B, S, d))
+    recorder().sublayer("moe.combine")     # the others close in moe.py
+    return x, aux
 
 
 def apply_block(params: Block, cfg, x, positions=None, positions3=None,
@@ -118,6 +131,7 @@ def apply_block(params: Block, cfg, x, positions=None, positions3=None,
     else:
         y = mamba_block(params.mamba, cfg, h)
     x = shard_batch_seq(x + shard_batch_seq(y))
+    recorder().sublayer(params.kind[0])
     x, aux = _channel_mix(params, cfg, x, moe_impl, mesh)
     return shard_batch_seq(x), aux
 
@@ -173,5 +187,6 @@ def decode_block(params: Block, cfg, x, cache, cache_len, active=None,
                 cache[name]) for name, t in new.items()}
         cache = new
     x = shard_decode(x + y)
+    recorder().sublayer(params.kind[0])
     x, _aux = _channel_mix(params, cfg, x, moe_impl, mesh)
     return shard_decode(x), cache

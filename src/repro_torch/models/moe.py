@@ -41,6 +41,11 @@ Parameters:
 
 The router stays in fp32 whatever the model dtype: JAX reads its fp32
 master at use, and a bf16 router would move near-tied routing decisions.
+
+Telemetry: each path closes the installed plane's ``moe.route``,
+``moe.dispatch`` (not ``moe_dense``) and ``moe.experts`` spans
+(``SpanRecorder.sublayer``; the block closes ``moe.combine``), and the
+capacity readback goes through ``to_host`` as ``sync.moe_capacity``.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.branch_matmul import branch_matmul
+from repro_torch.runtime.telemetry import recorder, to_host
 
 from .common import dense_init, param
 from .mlp import MLP, mlp
@@ -157,7 +163,8 @@ def dropless_capacity(counts, T: int) -> int:
     prefill never pads to E * T rows."""
     if T <= CAPACITY_STEP:
         return T
-    return -(-int(counts.max()) // CAPACITY_STEP) * CAPACITY_STEP
+    top = int(to_host("sync.moe_capacity", counts.max()))
+    return -(-top // CAPACITY_STEP) * CAPACITY_STEP
 
 
 def expert_ffn(params: MoE, xb, counts=None):
@@ -174,10 +181,16 @@ def expert_ffn(params: MoE, xb, counts=None):
 
 def moe_ragged(params: MoE, cfg, x):
     """Dropless single-shard MoE.  x: (T, d) -> (y (T, d), aux)."""
+    rec = recorder()
     w, idx, aux = route(params, cfg, x)
+    rec.sublayer("moe.route")
     b = Buckets(idx, cfg.moe.num_experts)
     counts = b.counts.clamp(max=b.cap).int()
-    y = b.combine(expert_ffn(params, b.gather(x), counts), w, x.dtype)
+    xb = b.gather(x)
+    rec.sublayer("moe.dispatch")
+    yb = expert_ffn(params, xb, counts)
+    rec.sublayer("moe.experts")
+    y = b.combine(yb, w, x.dtype)
     if params.shared is not None:
         y = y + mlp(params.shared, x)
     return y, aux
@@ -186,11 +199,14 @@ def moe_ragged(params: MoE, cfg, x):
 def moe_dense(params: MoE, cfg, x):
     """All-experts einsum (the smoke configs' path).  x: (T, d)."""
     m = cfg.moe
+    rec = recorder()
     w, idx, aux = route(params, cfg, x)
+    rec.sublayer("moe.route")
     dt = x.dtype
     g = torch.einsum("td,edf->tef", x, params.w_gate.to(dt))
     u = torch.einsum("td,edf->tef", x, params.w_up.to(dt))
     ys = torch.einsum("tef,efd->ted", F.silu(g) * u, params.w_down.to(dt))
+    rec.sublayer("moe.experts")
     gates = torch.zeros(x.shape[0], m.num_experts, dtype=dt,
                         device=x.device).scatter(1, idx, w)
     y = torch.einsum("ted,te->td", ys, gates)
@@ -291,7 +307,8 @@ def _capacity(counts, bound: int, even: int) -> int:
 
     if bound <= CAPACITY_STEP:
         return bound
-    top = even if is_fake(counts) else int(counts.max())
+    top = even if is_fake(counts) else int(
+        to_host("sync.moe_capacity", counts.max()))
     return min(bound, -(-top // CAPACITY_STEP) * CAPACITY_STEP)
 
 
@@ -300,14 +317,17 @@ def _local_ffn(w_gate, w_up, w_down, rows, e_loc, E_local, bound, even):
     to local expert ``e_loc`` (R,) (E_local: no expert, output zero):
     the rows bucketed by expert and three ``branch_matmul`` launches with
     the experts' counts (capacity: :func:`_capacity`).  Returns (R, d)."""
+    rec = recorder()
     counts = (e_loc[:, None] == torch.arange(E_local, device=e_loc.device)
               ).sum(0)
     b = Buckets(e_loc[:, None], E_local + 1,
                 cap=_capacity(counts, bound, even))
     xb = torch.where(b.valid[:E_local, :, None], rows[b.src[:E_local]],
                      rows.new_zeros(()))
+    rec.sublayer("moe.dispatch")
     yb = expert_ffn(SimpleNamespace(w_gate=w_gate, w_up=w_up,
                                     w_down=w_down), xb, counts.int())
+    rec.sublayer("moe.experts")
     valid = e_loc < E_local
     out = yb[e_loc.clamp(max=E_local - 1), b.pos[:, 0].clamp(max=b.cap - 1)]
     return torch.where(valid[:, None], out, out.new_zeros(()))
@@ -345,6 +365,7 @@ def _moe_ep_replicated(params: MoE, cfg, x, mesh, axis, data_axes, stats):
     T_loc = x_loc.shape[0]
     k = m.num_experts_per_tok
     w, idx, aux = route(SimpleNamespace(router=router), cfg, x_loc)
+    recorder().sublayer("moe.route")
     shard = mesh.get_local_rank(axis)
     flat_e = idx.reshape(-1)
     mine = (flat_e // E_local) == shard
@@ -389,6 +410,7 @@ def _moe_ep_a2a(params: MoE, cfg, x, mesh, axis, data_axes, stats):
     T_loc, d = x_loc.shape
     k = m.num_experts_per_tok
     w, idx, aux = route(SimpleNamespace(router=router), cfg, x_loc)
+    recorder().sublayer("moe.route")
     kcap = int(max(1, T_loc * k * m.capacity_factor // n_shards))
 
     # --- per-destination send buffers, by the pairs' order of appearance

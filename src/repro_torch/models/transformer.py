@@ -19,6 +19,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.runtime.telemetry import recorder
+
 from .blocks import (apply_block, block_pattern, decode_block, init_block,
                      init_block_cache, init_paged_block_cache,
                      split_pattern)
@@ -77,14 +79,21 @@ def forward_lm(params: LM, cfg, tokens, frontend_embeds=None,
     losses (0.0 without MoE layers), as in JAX.  Every layer is
     rematerialised while gradients are on.  ``frontend_embeds`` are
     prepended to the tokens' embeddings; ``positions3`` (3, B, S) with S
-    counting them drive M-RoPE (Qwen2-VL), which needs them."""
+    counting them drive M-RoPE (Qwen2-VL), which needs them.  The
+    installed telemetry plane gets the ``embed`` span and each block's
+    (``runtime/telemetry.py``, ``MODEL_KINDS``)."""
+    rec = recorder()
+    rec.mark()
     x = embed_tokens(params, cfg, tokens, frontend_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    rec.sublayer("embed")
     aux_total = 0.0
-    for layer in params.layers:
+    for i, layer in enumerate(params.layers):
+        rec.mark(i)
         x, aux = remat(apply_block, layer, cfg, x, positions, positions3,
                        window, moe_impl, mesh)
         aux_total = aux_total + aux
+    rec.mark()                  # the head's span: prefill_lm closes it
     return norm(params.final_norm, x), aux_total
 
 
@@ -105,11 +114,14 @@ def lm_loss(params: LM, cfg, tokens, labels, frontend_embeds=None,
 def prefill_lm(params: LM, cfg, tokens, frontend_embeds=None,
                positions3=None, window=None, moe_impl="ragged", mesh=None):
     """Prefill: full forward returning last-token logits only (the full
-    (B, S, V) logits tensor is never materialised)."""
+    (B, S, V) logits tensor is never materialised); the ``head`` span
+    covers the final norm and the logits."""
     hidden, _ = forward_lm(params, cfg, tokens, frontend_embeds,
                            positions3, window=window, moe_impl=moe_impl,
                            mesh=mesh)
-    return logits_last_token(params, cfg, hidden)
+    logits = logits_last_token(params, cfg, hidden)
+    recorder().sublayer("head")
+    return logits
 
 
 def init_caches(cfg, batch, max_len, dtype, device, ring=False, tile=16):
@@ -144,13 +156,21 @@ def decode_lm(params: LM, cfg, caches, tokens, cache_len, active=None,
 
     Returns a new list: an attention layer's entry is its cache, updated
     in place; a Mamba layer's is a new dict of new tensors, so the list
-    passed in still holds the state from before the step.
+    passed in still holds the state from before the step.  The installed
+    telemetry plane gets the ``embed``, block and ``head`` spans.
     """
+    rec = recorder()
+    rec.mark()
     x = embed_lookup(params.embed, tokens)             # (B, 1, d)
+    rec.sublayer("embed")
     new = []
-    for layer, cache in zip(params.layers, caches):
+    for i, (layer, cache) in enumerate(zip(params.layers, caches)):
+        rec.mark(i)
         x, cache = decode_block(layer, cfg, x, cache, cache_len, active,
                                 block_tables, moe_impl, positions3, mesh)
         new.append(cache)
+    rec.mark()
     hidden = norm(params.final_norm, x)
-    return logits_last_token(params, cfg, hidden), new
+    logits = logits_last_token(params, cfg, hidden)
+    rec.sublayer("head")
+    return logits, new

@@ -60,7 +60,7 @@ from repro_torch.device import resolve_device
 from .config import EngineConfig
 from .kv_cache import BlockKVCache, KVCacheManager, request_peak_bytes
 from .stepper import Stepper
-from .telemetry import Telemetry
+from .telemetry import Telemetry, blocking, install, to_host
 
 
 @dataclass
@@ -139,8 +139,11 @@ def _pad_to_multiple(arr: "np.ndarray", multiple: int) -> "np.ndarray":
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    """Device -> host copy: the engine's one sync point per dispatch."""
-    return t.cpu().numpy()
+    """Device -> host copy of a dispatch's result, a blocking read
+    (``sync.engine_copy``).  A megastep makes three (tokens, masks,
+    watchdog), a decode step two; the model's own reads
+    (``sync.moe_capacity``) come on top inside the dispatch."""
+    return to_host("sync.engine_copy", t).numpy()
 
 
 def _engine_device(api, device) -> None:
@@ -386,7 +389,8 @@ class ServingEngine:
         for i, r in enumerate(batch_reqs):
             self.kv.admit(r.id, r.context_len())
             self._rec.point("admit", request_id=r.id, slot=i)
-        self._run_round(batch_reqs, self._t0, t_admit)
+        with install(self.telemetry):    # the model records into it
+            self._run_round(batch_reqs, self._t0, t_admit)
 
     def drain_completions(self) -> "list[Completion]":
         """Completions resolved since the last drain, in resolution
@@ -477,7 +481,9 @@ class ContinuousEngine:
     a short megastep whenever requests wait (N clips to the next slot
     completion, bounding TTFT inflation), fences off a demoted
     request's re-admission headroom from the reservation, and
-    **reconciles** after the single host transfer: streams truncate at
+    **reconciles** after the result's host copies (three; an MoE layer
+    over ``CAPACITY_STEP`` rows adds a capacity read per fused step,
+    ``sync.*`` in the telemetry plane): streams truncate at
     EOS, reserved-but-unused blocks return to the pool, admission and
     preemption re-run.  ``megastep=1`` is the per-iteration engine,
     bit-identical streams by construction; N >= 2 preserves them
@@ -1242,16 +1248,19 @@ class ContinuousEngine:
 
     def _capture_blocks(self, ids: "list[int]") -> dict:
         """Device -> host copy of physical pool rows ``ids``: one
-        ``index_select`` per layer pool.  Returns ``{slab_id: [per-pool
+        ``index_select`` per layer pool, each read and the ids' copy up a
+        blocking copy (``sync.kv_spill``).  Returns ``{slab_id: [per-pool
         host tensors in layer order, k then v]}`` — the payload layout
         :meth:`_scatter_blocks` writes back (bit-exact: same dtype)."""
         out: "dict[int, list]" = {b: [] for b in ids}
         if not ids:
             return out
-        idx = torch.tensor(ids, dtype=torch.long, device=self.api.device)
+        idx = blocking("sync.kv_spill", torch.tensor, ids, dtype=torch.long,
+                       device=self.api.device)
         for c in self.caches:
             for name in ("k_pool", "v_pool"):
-                rows = c[name].index_select(0, idx).cpu()
+                rows = to_host("sync.kv_spill",
+                               c[name].index_select(0, idx))
                 for j, b in enumerate(ids):
                     out[b].append(rows[j])
         return out
@@ -1259,16 +1268,20 @@ class ContinuousEngine:
     def _scatter_blocks(self, scatter: "list[tuple]") -> None:
         """Host -> device: write restored payloads into their (new)
         physical pool rows with ``index_copy_``, traversing pools in
-        :meth:`_capture_blocks` order.  The pools update in place."""
-        ids = torch.tensor([b for b, _ in scatter], dtype=torch.long,
-                           device=self.api.device)
+        :meth:`_capture_blocks` order.  The pools update in place; the
+        ids and each pool's payload go up from pageable memory, a
+        blocking copy each (``sync.kv_restore``)."""
+        ids = blocking("sync.kv_restore", torch.tensor,
+                       [b for b, _ in scatter], dtype=torch.long,
+                       device=self.api.device)
         payloads = [p for _, p in scatter]
         li = 0
         for c in self.caches:
             for name in ("k_pool", "v_pool"):
                 vals = torch.stack([p[li] for p in payloads])
                 li += 1
-                c[name].index_copy_(0, ids, vals.to(c[name].device))
+                c[name].index_copy_(0, ids, blocking(
+                    "sync.kv_restore", vals.to, c[name].device))
 
     def _reclaimable_bytes(self) -> int:
         """Device bytes fresh admission could reclaim on demand: the
@@ -1354,7 +1367,7 @@ class ContinuousEngine:
             nxt, bad_dev, self.caches = self.stepper.decode(
                 self.params, self.caches, toks, self.slot_len, active,
                 block_tables=self.tables, poison=self._poison(attempt))
-            nxt_host = _host(nxt)             # the one sync per step
+            nxt_host = _host(nxt)             # 2 engine copies a step
             bad = _host(bad_dev)
             if not bad.any():
                 break
@@ -1512,8 +1525,10 @@ class ContinuousEngine:
         and stop writing mid-scan without a host sync.  Prefilling rows
         ride the scan by force-feeding their remaining prompt tokens
         (and a resumed request's already-sampled last token) from a
-        host-built (B, n) column set.  After the single host transfer,
-        reconciliation replays the bookkeeping: streams are extended
+        host-built (B, n) column set.  After the result's host copies
+        (``sync.engine_copy``; an MoE layer over ``CAPACITY_STEP`` rows
+        also reads its capacity back in every fused step), reconciliation
+        replays the bookkeeping: streams are extended
         (truncated past EOS), TTFTs stamped post-reconciliation,
         reserved-but-unused blocks returned to the pool, and finished
         slots freed so admission sees the true headroom."""
@@ -1548,7 +1563,7 @@ class ContinuousEngine:
             self.params, self.caches, self.slot_last, self.slot_len,
             active, budget, forced, n_forced, eos_ids,
             block_tables=self.tables, poison=self._poison(0))
-        toks_out = _host(toks_dev)            # (n, B) — the ONE sync
+        toks_out = _host(toks_dev)            # (n, B): 3 engine copies
         act_out = _host(act_dev)
         bad = _host(bad_dev)
         if bad.any():
@@ -1694,17 +1709,21 @@ class ContinuousEngine:
         The megastep plan falls back to the per-iteration path whenever
         fusing is pointless (N < 2) or unsafe (the pool cannot back a
         2-step scan without preempting — preemption stays a
-        per-iteration-path decision)."""
+        per-iteration-path decision).  The engine's telemetry plane is
+        installed around the iteration, so the model step records into
+        it."""
         if self._t0 is None:
             self._t0 = time.perf_counter()
         self._m_iterations.inc()
         rec = self._rec
         if not rec.enabled:          # no-op fast path: zero clock reads
-            self._step()
+            with install(self.telemetry):
+                self._step()
             return
         t_it = rec.now()
         try:
-            self._step()
+            with install(self.telemetry):   # the model records into it
+                self._step()
         finally:
             extra = {}
             if self.kv.host_budget:

@@ -17,13 +17,16 @@ model's ``decode_fn`` over a whole slot table:
   force-feed them from a host-built ``forced`` column.
 
 The JAX package compiles each into one ``jit``/``lax.scan`` dispatch;
-here each is a Python loop whose carry stays on the device.  Nothing in
-a loop reads a value back to the host: the engine's one sync per
-dispatch is where it copies the result out.  Every step function also
-returns the NaN watchdog flag per row, and ``poison`` (B,) bool — the
-fault plane's injection mask — is an argument of the same function.
-``dispatches`` counts calls exactly as the JAX package counts jitted
-calls.
+here each is a Python loop whose carry stays on the device.  The loop
+itself reads nothing back to the host, but the model step does: an MoE
+layer over ``CAPACITY_STEP`` rows reads its bucket capacity
+(``sync.moe_capacity``) in every step, and the engine then copies the
+result out (``sync.engine_copy``); ``runtime/telemetry.py`` counts each
+read, as it does the host-to-device copies of each dispatch's inputs
+(``sync.step_inputs``).  Every step function also returns the NaN
+watchdog flag per row, and ``poison`` (B,) bool — the fault plane's
+injection mask — is an argument of the same function.  ``dispatches``
+counts calls exactly as the JAX package counts jitted calls.
 
 Each step function has a *dense* flavour (``block_tables=None``: the
 per-row caches of ``api.init_caches``) and a *paged* one (a ``(B,
@@ -42,7 +45,7 @@ import torch
 
 from .sampling import (greedy_serving, logits_watchdog, megastep_advance,
                        poison_logits, select_tokens)
-from .telemetry import MetricsRegistry
+from .telemetry import MetricsRegistry, blocking
 
 # cache entries without a batch axis: a dense cache's slot positions and
 # tile, the physical block pools of a paged one
@@ -76,8 +79,11 @@ class Stepper:
 
     def _device(self, x, dtype):
         """Host array -> device tensor, always a copy: the engine mutates
-        its slot-table arrays in place after the call."""
-        return torch.tensor(np.asarray(x), dtype=dtype, device=self.device)
+        its slot-table arrays in place after the call.  From pageable
+        memory the copy waits for the stream to drain
+        (``sync.step_inputs``)."""
+        return blocking("sync.step_inputs", torch.tensor, np.asarray(x),
+                        dtype=dtype, device=self.device)
 
     def _step(self, params, caches, toks, lens, active, tables):
         batch = {"tokens": toks[:, None], "cache_len": lens,
@@ -141,7 +147,12 @@ class Stepper:
     def megastep(self, params, caches, toks, lens, active, budget,
                  forced, n_forced, eos_ids, block_tables=None,
                  poison=None):
-        """N fused decode iterations, ONE dispatch, ONE host sync.
+        """N fused decode iterations in ONE dispatch.  Its host syncs:
+        the copies of its 7 inputs (8 with a block table, 9 with
+        ``poison``), each MoE layer's capacity read in every step once
+        the batch is over ``CAPACITY_STEP`` rows (dbrx at 128 rows, N =
+        8: 64), then the engine's 3 copies of the result (``sync.*`` in
+        the telemetry plane).
 
         toks/lens/active/budget/n_forced/eos_ids (B,); forced (B, N)
         prompt tokens to force-feed (row b uses column s while

@@ -3,8 +3,8 @@
 The paper's claims — latency reduction, bounded memory overhead,
 adaptive scheduling under budgets — are *time-series* claims, but until
 this module the repro could only report end-of-run aggregates scattered
-across ad-hoc engine attributes.  This module provides the three layers
-that make a serving run diagnosable:
+across ad-hoc engine attributes.  This module provides the layers that
+make a serving run diagnosable:
 
 * **Metrics registry** (:class:`MetricsRegistry`) — typed counters,
   gauges (with high-water tracking) and histograms with fixed
@@ -20,29 +20,45 @@ that make a serving run diagnosable:
   fixed (:data:`SPAN_KINDS`): ``submit`` / ``admit`` / ``first_token``
   / ``prefill_chunk`` / ``decode`` / ``megastep`` / ``reconcile`` /
   ``preempt`` / ``spill`` / ``restore`` / ``stalled`` / ``fault`` /
-  ``complete`` / ``iteration`` (engine) and ``segment`` (hetero
-  executor).  Recording is **disabled by default**: every hook site is
-  a single ``enabled`` check, ``now()`` returns ``0.0`` without touching
-  the clock, and nothing allocates — the disabled hot path is
-  micro-benchmarked by ``benchmarks/serving.py`` and gated under 2 % of
-  per-token wall time by ``benchmarks/gate.py``.
+  ``complete`` / ``iteration`` (engine), ``segment`` (hetero
+  executor), the model step's sublayers (:data:`MODEL_KINDS`) and the
+  copies that block the host (:data:`SYNC_KINDS`).  Recording is
+  **disabled by default**: every hook site is a single ``enabled``
+  check, ``now()`` returns ``0.0`` without touching the clock, and the
+  model step's hooks (``mark`` / ``sublayer``) build nothing.
 
-* **Exporters** — ``MetricsRegistry.snapshot()`` (JSON),
-  :func:`request_timelines` (per-request lifecycle), and
+* **The installed plane** (:class:`install`, :func:`recorder`) — the
+  model code takes no telemetry argument; it records into the plane a
+  caller installed around its call (the engines install their own
+  around every ``step``), else into a disabled default.  Every copy of
+  the serving path that blocks the host (its device-to-host reads,
+  :func:`to_host`, the host tier's copies of KV blocks both ways and the
+  stepper's pageable host-to-device copies) goes through
+  :func:`blocking`, which counts it in the installed plane's registry
+  (``sync.<site>``) and, while tracing, records it as a ``sync.<site>``
+  span.
+
+* **Exporters** — ``MetricsRegistry.snapshot()`` (JSON) and
   :func:`chrome_trace` (Chrome trace-event format, loadable in Perfetto
-  or ``chrome://tracing``): engine iterations and dispatch spans as
-  duration events on one track, request lifecycles as async events plus
-  per-slot residency tracks, KV-pool occupancy as counter samples, and
-  fault activations as instant events.  ``python -m repro_torch.launch.serve
-  --trace out.json`` writes one for a live serving run.
+  or ``chrome://tracing``): engine iterations, dispatch spans and the
+  model step's spans as duration events on one track, request
+  lifecycles as async events plus per-slot residency tracks, KV-pool
+  occupancy as counter samples, and fault activations as instant
+  events.  ``python -m repro_torch.launch.serve --trace out.json``
+  writes one for a live serving run.  ``ts`` is ``perf_counter``
+  seconds; :meth:`Telemetry.to_epoch_ns` maps it to the epoch
+  nanoseconds of ``torch.profiler``'s device events, and
+  ``chrome_trace(epoch=True)`` exports on that clock.  Spans add no
+  event to a device trace (no ``record_function``, no NVTX range).
 
 **The hard invariant: tracing changes nothing.**  Recording reads the
 clock and appends to a host-side list — it never feeds back into
-scheduling, sampling or dispatch.  Greedy streams and dispatch counts
-are bit-identical with tracing on vs off, asserted by the identity
-child's ``--tele`` sweep (tests/serving_identity_child.py) and by the
-``tracing_invisible`` flag the serving benchmark reports and the bench
-gate enforces.
+scheduling, sampling or dispatch.  Greedy streams, dispatch counts and
+every counter are bit-identical with tracing on vs off
+(tests/test_torch_telemetry.py, tests/test_torch_model_spans.py).  The
+disabled path's cost on the card is measured by interleaved runs of the
+benchmark's batch-decode cell, and the recording path's cost by the same
+job traced without the profiler (PERF.md).
 """
 
 from __future__ import annotations
@@ -63,17 +79,41 @@ from bisect import bisect_left
 #: TTFT-under-load signal); ``cache_evict`` marks a prefix-cache block
 #: leaving the device pool (block/byte args, ``to_host`` when the host
 #: tier gave it a second chance).
+#: The model step's sublayer spans (``models/transformer.py``,
+#: ``blocks.py``, ``moe.py``), one naming for prefill and decode:
+#: ``embed``; per block the mixer half (``attn`` or ``mamba``: norm1, the
+#: mixer, the residual) and the channel half (``mlp`` for a dense
+#: channel; for an MoE channel ``moe.route``: norm2, router, softmax,
+#: top-k, aux; ``moe.dispatch``: the buckets and the gather, and the
+#: token exchange under expert parallelism; ``moe.experts``: the three
+#: grouped GEMMs and SiLU·up; ``moe.combine``: the combine, a shared
+#: expert and the residual); ``head``: the final norm and the logits.
+#: Block spans carry ``args={"layer": index}``.
+MODEL_KINDS = ("embed", "attn", "mamba", "mlp", "moe.route",
+               "moe.dispatch", "moe.experts", "moe.combine", "head")
+
+#: Copies of the serving path that block the host until the stream has
+#: drained, each through :func:`blocking`: the device-to-host reads of
+#: the MoE bucket capacity (``models/moe.py``) and of the engine's results
+#: (``runtime/engine.py`` ``_host``), the host-tier copies of KV blocks
+#: (``sync.kv_spill``: the block ids up and the blocks down;
+#: ``sync.kv_restore``: the block ids and the blocks up, both from
+#: pageable memory), and the stepper's host-to-device copies of a
+#: dispatch's inputs from pageable memory (``runtime/stepper.py``
+#: ``_device``).
+SYNC_KINDS = ("sync.moe_capacity", "sync.engine_copy", "sync.kv_spill",
+              "sync.kv_restore", "sync.step_inputs")
+
 SPAN_KINDS = ("submit", "admit", "first_token", "prefill_chunk",
               "decode", "megastep", "reconcile", "preempt", "spill",
               "restore", "stalled", "fault", "complete", "iteration",
-              "segment", "cache_evict")
+              "segment", "cache_evict") + MODEL_KINDS + SYNC_KINDS
 
 #: Kinds recorded with a duration (``ts`` + ``dur``); the rest are
 #: instantaneous points (``ts`` only).
 DURATION_KINDS = frozenset({"iteration", "prefill_chunk", "decode",
                             "megastep", "reconcile", "spill", "restore",
-                            "segment"})
-POINT_KINDS = frozenset(k for k in SPAN_KINDS if k not in DURATION_KINDS)
+                            "segment", *MODEL_KINDS, *SYNC_KINDS})
 
 #: Kinds that always carry a ``request_id``.
 REQUEST_KINDS = frozenset({"submit", "admit", "first_token", "preempt",
@@ -220,11 +260,15 @@ class SpanRecorder:
     docstring's invariance contract.
     """
 
-    __slots__ = ("enabled", "events")
+    __slots__ = ("enabled", "events", "layer", "_mark")
 
     def __init__(self, enabled: bool = False):
         self.enabled = bool(enabled)
         self.events: "list[dict]" = []
+        # the model step's chain of sublayer spans: its layer and where
+        # its next span starts (``mark`` / ``sublayer``)
+        self.layer: "int | None" = None
+        self._mark = 0.0
 
     def now(self) -> float:
         """Monotonic timestamp, or 0.0 (clock untouched) when disabled."""
@@ -261,6 +305,27 @@ class SpanRecorder:
         e = self._event(kind, t0, iteration, request_id, slot, args)
         e["dur"] = now - t0
 
+    def mark(self, layer: "int | None" = None) -> None:
+        """Start a chain of the model step's sublayer spans now, in block
+        ``layer`` (None outside the blocks: ``embed``, ``head``)."""
+        if self.enabled:
+            self.layer = layer
+            self._mark = time.perf_counter()
+
+    def sublayer(self, kind: str) -> None:
+        """Record a duration event from the chain's mark (its previous
+        sublayer's end) to now, with ``args={"layer": ...}`` inside a
+        block, and move the mark to now.  Disabled, one check and no
+        allocation."""
+        if not self.enabled:
+            return
+        now = time.perf_counter()
+        e = {"kind": kind, "ts": self._mark, "dur": now - self._mark}
+        if self.layer is not None:
+            e["args"] = {"layer": self.layer}
+        self.events.append(e)
+        self._mark = now
+
 
 class Telemetry:
     """One process-wide telemetry plane: a metrics registry (always on —
@@ -274,20 +339,25 @@ class Telemetry:
                  metrics: "MetricsRegistry | None" = None):
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.rec = SpanRecorder(trace)
-
-    @property
-    def tracing(self) -> bool:
-        return self.rec.enabled
+        # epoch ns minus perf_counter ns, read once when tracing starts:
+        # maps ``ts`` onto torch.profiler's device clock
+        self.epoch_offset_ns = (time.time_ns() - time.perf_counter_ns()
+                                if trace else 0)
 
     @property
     def events(self) -> "list[dict]":
         return self.rec.events
 
-    def timelines(self) -> "dict[int, list[dict]]":
-        return request_timelines(self.rec.events)
+    def to_epoch_ns(self, ts: float) -> int:
+        """A recorded ``ts`` (perf_counter seconds) in epoch nanoseconds,
+        the clock of ``torch.profiler``'s device events."""
+        return round(ts * 1e9) + self.epoch_offset_ns
 
-    def chrome_trace(self) -> dict:
-        return chrome_trace(self.rec.events)
+    def chrome_trace(self, epoch: bool = False) -> dict:
+        """:func:`chrome_trace` of the recorded events; ``epoch`` puts
+        them on the epoch clock of a ``torch.profiler`` trace."""
+        return chrome_trace(self.rec.events,
+                            self.epoch_offset_ns if epoch else None)
 
     def save_chrome_trace(self, path: str) -> dict:
         trace = self.chrome_trace()
@@ -297,36 +367,88 @@ class Telemetry:
 
 
 # --------------------------------------------------------------------------
-# exporters
+# the installed plane
 # --------------------------------------------------------------------------
 
-def request_timelines(events: "list[dict]") -> "dict[int, list[dict]]":
-    """Per-request lifecycle timeline: request id -> its events in
-    recording order (submit → admit → [preempt → admit ...] →
-    complete)."""
-    out: "dict[int, list[dict]]" = {}
-    for e in events:
-        rid = e.get("request_id")
-        if rid is not None:
-            out.setdefault(rid, []).append(e)
+#: the plane in use when no caller installed one: tracing off, and
+#: :func:`blocking` counts nothing in it
+_DISABLED = Telemetry()
+_installed = _DISABLED
+
+
+def recorder() -> SpanRecorder:
+    """The span recorder the model step records into: the innermost
+    :class:`install`-ed plane's, else the disabled default's."""
+    return _installed.rec
+
+
+class install:
+    """``with install(tele):`` makes ``tele`` the installed plane and
+    restores the previous one on exit, however the block ends."""
+
+    __slots__ = ("tele", "prev")
+
+    def __init__(self, tele: Telemetry):
+        self.tele = tele
+        self.prev = None
+
+    def __enter__(self) -> Telemetry:
+        global _installed
+        self.prev = _installed
+        _installed = self.tele
+        return self.tele
+
+    def __exit__(self, *exc) -> None:
+        global _installed
+        _installed = self.prev
+
+
+def blocking(kind: str, copy, *args, **kwargs):
+    """``copy(*args, **kwargs)``, a copy that blocks the host: counted as
+    ``kind`` (one of :data:`SYNC_KINDS`) in the installed plane's
+    registry and, while it traces, recorded as a ``kind`` duration span
+    around the copy.  The disabled default counts nothing."""
+    tele = _installed
+    if tele is _DISABLED:
+        return copy(*args, **kwargs)
+    if kind not in SYNC_KINDS:
+        raise ValueError(f"unknown host-sync site {kind!r}")
+    tele.metrics.counter(kind).inc()
+    rec = tele.rec
+    if not rec.enabled:
+        return copy(*args, **kwargs)
+    t0 = time.perf_counter()
+    out = copy(*args, **kwargs)
+    rec.span(kind, t0)
     return out
 
+
+def to_host(kind: str, t):
+    """``t.cpu()``, a blocking device-to-host read (:func:`blocking`)."""
+    return blocking(kind, t.cpu)
+
+
+# --------------------------------------------------------------------------
+# exporters
+# --------------------------------------------------------------------------
 
 #: Chrome trace-event "pid" lanes: engine iterations + dispatch spans,
 #: request async lifecycles, and per-slot residency tracks.
 PID_ENGINE, PID_REQUESTS, PID_SLOTS = 1, 2, 3
 
 
-def chrome_trace(events: "list[dict]") -> dict:
+def chrome_trace(events: "list[dict]",
+                 epoch_offset_ns: "int | None" = None) -> dict:
     """Convert recorded events to Chrome trace-event format (the JSON
     Perfetto and ``chrome://tracing`` load).
 
     Mapping:
 
     * duration kinds (``iteration``, ``prefill_chunk``, ``decode``,
-      ``megastep``, ``reconcile``, ``segment``) → complete events
-      (``ph: "X"``) on the engine track; dispatch spans nest inside
-      their iteration's slice,
+      ``megastep``, ``reconcile``, ``segment``, the model step's and the
+      host reads') → complete events (``ph: "X"``) on the engine track;
+      dispatch spans nest inside their iteration's slice, the model
+      step's spans and host reads inside their dispatch's,
     * ``submit``/``complete`` → nestable async begin/end (``"b"``/
       ``"e"``, ``id`` = request id) with ``admit``/``preempt`` as async
       instants (``"n"``) — one async lifecycle per request,
@@ -340,7 +462,8 @@ def chrome_trace(events: "list[dict]") -> dict:
     * ``fault`` → instant events (``ph: "i"``) on the engine track.
 
     Timestamps are exported in microseconds relative to the earliest
-    event.
+    event, or, given ``epoch_offset_ns`` (:attr:`Telemetry.epoch_offset_ns`),
+    in epoch microseconds, the clock of a ``torch.profiler`` trace.
     """
     te: "list[dict]" = [
         {"ph": "M", "name": "process_name", "pid": PID_ENGINE, "tid": 0,
@@ -352,10 +475,14 @@ def chrome_trace(events: "list[dict]") -> dict:
         {"ph": "M", "name": "thread_name", "pid": PID_ENGINE, "tid": 0,
          "args": {"name": "iterations"}},
     ]
-    t0 = min((e["ts"] for e in events), default=0.0)
+    if epoch_offset_ns is None:
+        t0 = min((e["ts"] for e in events), default=0.0)
 
-    def us(t: float) -> float:
-        return round((t - t0) * 1e6, 3)
+        def us(t: float) -> float:
+            return round((t - t0) * 1e6, 3)
+    else:
+        def us(t: float) -> float:
+            return round(t * 1e6 + epoch_offset_ns / 1e3, 3)
 
     residency: "dict[int, tuple[int, float]]" = {}  # rid -> (slot, ts)
     slot_tids: "set[int]" = set()

@@ -113,9 +113,13 @@ class Package:
 
 def stats_view(eng) -> dict:
     """``engine.stats()`` without the stepper's entry (its counters count
-    jit traces in JAX), histograms by bucket counts."""
+    jit traces in JAX) and the port's host-read counters (``sync.*``, none
+    in JAX; tests/test_torch_model_spans.py checks them), histograms by
+    bucket counts."""
     s = eng.stats()
     s.pop("stepper", None)
+    s["counters"] = {k: v for k, v in s["counters"].items()
+                     if not k.startswith("sync.")}
     s["histograms"] = {k: v["counts"] for k, v in s["histograms"].items()}
     return s
 

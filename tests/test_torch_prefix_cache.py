@@ -81,9 +81,13 @@ class Package:
 
 
 def counters(eng) -> dict:
-    """The engine's and the kv's counters and gauges."""
+    """The engine's and the kv's counters and gauges (not the port's
+    host-read counters, ``sync.*``, which JAX has none of;
+    tests/test_torch_model_spans.py checks them)."""
     s = eng.stats()
-    return json.loads(json.dumps({"counters": s["counters"],
+    counts = {k: v for k, v in s["counters"].items()
+              if not k.startswith("sync.")}
+    return json.loads(json.dumps({"counters": counts,
                                   "gauges": s["gauges"]}))
 
 

@@ -8,9 +8,14 @@ the port's ``engine.stats()`` (without the stepper's entry, histograms
 by bucket counts), its recorded events (every field but the host-clock
 readings: ``ts``, ``dur`` and the TTFTs) and its saved Chrome trace
 (validated by ``validate_chrome_trace``: event names and counts per
-phase) equal the JAX engine's, and a traced run gives the same streams and dispatch
-counts as an untraced one.  Within the port the span taxonomy of
-``tests/test_telemetry.py`` holds.  The JAX side runs in a child process
+phase) equal the JAX engine's, and a traced run gives the same streams
+and dispatch counts as an untraced one.  Within the port the span taxonomy of
+``tests/test_telemetry.py`` holds.  The port's model-step spans and
+host reads (``MODEL_KINDS``, ``SYNC_KINDS``: events and ``sync.*``
+counters JAX has no counterpart of) are left out of the comparison with
+JAX, which holds every kind and counter JAX records; they are checked
+here against the engine's own dispatches and in
+``tests/test_torch_model_spans.py``.  The JAX side runs in a child process
 (this file with ``--child``) with ``jax_cpu_enable_async_dispatch`` off.
 """
 
@@ -49,6 +54,9 @@ class Package:
         self.BlockKVCache = mod("runtime.kv_cache").BlockKVCache
         self.tele = tele
         self.device = {"device": "cpu"} if name == "repro_torch" else {}
+        # the port's model-step and host-read kinds (none in JAX)
+        self.port_only = frozenset(getattr(tele, "MODEL_KINDS", ())) | \
+            frozenset(getattr(tele, "SYNC_KINDS", ()))
 
     def engine(self, m, telemetry=None, **kw):
         base = dict(hbm_budget=1 << 30, max_batch=MAX_BATCH,
@@ -74,9 +82,13 @@ def prompts(cfg, n, plen=5, seed=0):
             for _ in range(n)]
 
 
-def stats_view(eng) -> dict:
+def stats_view(eng, drop=frozenset()) -> dict:
+    """``engine.stats()`` without the stepper's entry and the counters
+    named in ``drop``, histograms by bucket counts."""
     s = eng.stats()
     s.pop("stepper", None)
+    s["counters"] = {k: v for k, v in s["counters"].items()
+                     if k not in drop}
     s["histograms"] = {k: v["counts"] for k, v in s["histograms"].items()}
     return s
 
@@ -143,14 +155,21 @@ def record(P, m, name, trace_path) -> dict:
             "m8": ("iteration", "kv_pool", "megastep"),
             "fault": ("iteration", "kv_pool", "spill", "restore")}[name]
     tele.save_chrome_trace(trace_path)
-    summary = P.tele.validate_chrome_trace(trace_path, require_names=want)
+    P.tele.validate_chrome_trace(trace_path, require_names=want)
+    shared = [e for e in tele.events if e["kind"] not in P.port_only]
+    summary = P.tele.validate_chrome_trace(P.tele.chrome_trace(shared))
     return json.loads(json.dumps({
         "streams": {str(k): [c.status, [int(t) for t in c.tokens]]
                     for k, c in sorted(done.items())},
-        "dispatches": eng.dispatches, "stats": stats_view(eng),
-        "events": events_view(tele.events),
+        "dispatches": eng.dispatches,
+        "stats": stats_view(eng, P.port_only),
+        "events": events_view(shared),
         "trace": {"phases": summary["phases"], "names": summary["names"],
-                  "events": summary["events"]}}))
+                  "events": summary["events"]},
+        "port": {"events": tele.events if P.port_only else [],
+                 "counters": {k: v for k, v in
+                              eng.stats()["counters"].items()
+                              if k in P.port_only}}}))
 
 
 def child(trace_dir: str) -> None:
@@ -235,7 +254,8 @@ def test_span_taxonomy(port_records):
     fault runs, each event shaped per its kind, per-request timelines
     from submit to complete."""
     from repro_torch.runtime.telemetry import (DURATION_KINDS,
-                                               REQUEST_KINDS, SPAN_KINDS)
+                                               MODEL_KINDS, REQUEST_KINDS,
+                                               SPAN_KINDS, SYNC_KINDS)
 
     seen = set()
     for name in ("m1", "m8", "fault"):
@@ -250,8 +270,16 @@ def test_span_taxonomy(port_records):
                 timelines.setdefault(e["request_id"], []).append(e["kind"])
         assert all(t[0] == "submit" and t[-1] == "complete"
                    for t in timelines.values())
-    # segment is the hetero runtime's; cache_evict needs the prefix cache
-    assert seen == set(SPAN_KINDS) - {"segment", "cache_evict"}
+    # segment is the hetero runtime's; cache_evict needs the prefix cache;
+    # the port-only kinds are the next test's
+    assert seen == set(SPAN_KINDS) - {"segment", "cache_evict"} \
+        - set(MODEL_KINDS) - set(SYNC_KINDS)
+    port = {e["kind"] for name in ("m1", "m8", "fault")
+            for e in port_records[name]["port"]["events"]
+            if e["kind"] in set(MODEL_KINDS) | set(SYNC_KINDS)}
+    # stablelm: attention and dense channels, no MoE capacity read
+    assert port == {"embed", "attn", "mlp", "head", "sync.engine_copy",
+                    "sync.kv_spill", "sync.kv_restore", "sync.step_inputs"}
     fault = port_records["fault"]["events"]
     stalled = [e for e in fault if e["kind"] == "stalled"]
     assert stalled and all(e["args"]["cause"] == "budget_shrunk"
@@ -260,6 +288,42 @@ def test_span_taxonomy(port_records):
     assert port_records["fault"]["stats"]["counters"]["engine.stalls"] \
         == len(stalled)
     assert {"spill", "restore"} <= set(DURATION_KINDS)
+
+
+@pytest.mark.parametrize("name", SCENARIOS)
+def test_host_reads_inside_their_dispatch(port, port_records, name):
+    """Port only: every ``sync.*`` copy is counted and lies inside the
+    span that made it: the continuous engine's 3 result copies a
+    megastep, 2 a decode step and 2 or none a prefill chunk (the round
+    engine's 1 a decode step, 1 or none a chunk), the stepper's input
+    copies in every dispatch, and a spill or restore that moved blocks
+    copies the block ids and 2 pools per attention layer."""
+    _, m = port
+    rec = port_records[name]["port"]
+    reads = [e for e in rec["events"] if e["kind"].startswith("sync.")]
+    assert rec["counters"] == {k: sum(e["kind"] == k for e in reads)
+                               for k in {e["kind"] for e in reads}}
+    tier = {0, 1 + 2 * m.cfg.num_layers}
+    want = {"megastep": {3}, "decode": {2}, "prefill_chunk": {0, 2},
+            "spill": tier, "restore": tier}
+    if name == "round":
+        want.update(decode={1}, prefill_chunk={0, 1})
+    covered = 0
+    for e in rec["events"]:
+        if e["kind"] not in want:
+            continue
+        mine = [r for r in reads if e["ts"] <= r["ts"] <= e["ts"] + e["dur"]]
+        covered += len(mine)
+        kinds = [r["kind"] for r in mine]
+        if e["kind"] in ("spill", "restore"):
+            assert len(mine) in tier
+            assert bool(mine) == bool(e["args"]["transferred"])
+            assert set(kinds) <= {f"sync.kv_{e['kind']}"}
+        else:
+            assert kinds.count("sync.engine_copy") in want[e["kind"]], e
+            assert kinds.count("sync.step_inputs") >= 3
+            assert set(kinds) <= {"sync.engine_copy", "sync.step_inputs"}
+    assert covered == len(reads)
 
 
 def test_host_clock_stamps(port):
